@@ -29,6 +29,13 @@ import zlib
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card with CUDA; skips on hosts without one",
+    )
+
+
 class CompileCounter:
     """Counts real XLA compilations and jit trace-cache growth.
 
