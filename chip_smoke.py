@@ -7,20 +7,40 @@ Runs from the root of a checkout on a host with one NVIDIA H100 (sm_90)
 and the CUDA toolkit.  Imports the port (``src/repro_torch``) only, never
 JAX or the JAX package.  Phases, each of which asserts:
 
-1. build: both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
+1. build: all four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
 2. the fused-step kernel against its plain PyTorch version (D = 1 at
    WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1 and 2;
    stabilizer on and off): winner times and weights bit-equal;
 3. the RNL-fire kernel against its plain version (B = 905 at 270 x 25,
    B = 121 at 637 x 2): equal;
-4. the main path: ``simulator.cluster_time_series`` on all seven Table II
-   designs, full synthetic doubles, 8 epochs, under mode='auto' and
-   mode='pallas', with launch counters read around it; WordSynonyms and
-   Lightning2 again on the CPU from the same initial weights, which must
-   give the same assignments and Rand index;
-5. timing at the main path's shapes with CUDA events, beside each
-   kernel's bound on the card.
+4. the volley-block kernel against its plain version (D = 1 and D = 4
+   heterogeneous envelopes, v_blk 1, 7 and 32 with tails, wta_k 1 and 2,
+   stabilizer on and off, a threshold-0 design with a tail): weights
+   bit-equal;
+5. the batched-fire kernel against its plain version (D = 4
+   heterogeneous, N = 905 at 270 x 50 and 637 x 2): times and ids equal;
+   once phase 7 has run, again on the very inputs of each of the
+   integer-grid sweep's launches (each bucket's trained weights and
+   volleys);
+6. the single-column path: ``simulator.cluster_time_series`` on all
+   seven Table II designs, full synthetic doubles, 8 epochs, under
+   mode='auto' and mode='pallas', with launch counters read around it;
+   WordSynonyms and Lightning2 again on the CPU from the same initial
+   weights, which must give the same assignments and Rand index;
+7. the sweep path, launch counters read around it: two 12-design
+   ``simulator.cluster_time_series_many`` sweeps over WordSynonyms (full
+   width and N, 8 epochs; default STDP, then integer-grid STDP in buckets
+   of 8), ``simulator.assign_time_series`` on one integer-grid design,
+   and a two-layer ``simulator.cluster_time_series_network``;
+8. the sweep path on the CPU from the same initial weights (two designs
+   of each sweep, and the network): equal assignments, Rand index and
+   weights;
+9. timing at the paths' shapes with CUDA events, beside each kernel's
+   bound on the card: the volley-block kernel on the default sweep's
+   first launch (D = 12 at 270 x 50, v_blk = 32), the batched fire on
+   each of the integer-grid sweep's launches (the kernels line sums
+   them).
 
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -93,11 +113,18 @@ class Timer:
         return s.elapsed_time(e) / reps
 
 
-def fire_ops(p: int, t_fire, t_max: int) -> int:
+def fire_ops(p: int, t_fire, t_max, live=None) -> int:
     """min+add pairs the fire needs for these inputs: every synapse, for
     each cycle up to and including the first crossing (all t_max cycles
-    for a neuron that never fires)."""
-    cycles = (t_fire.long() + 1).clamp(max=t_max)
+    for a neuron that never fires).  ``t_max`` is a number or a tensor
+    broadcast against ``t_fire``; ``live`` masks out neurons the fire
+    skips (those at or past q_active)."""
+    import torch
+
+    t_max = torch.as_tensor(t_max, device=t_fire.device).long()
+    cycles = torch.minimum(t_fire.long() + 1, t_max)
+    if live is not None:
+        cycles = cycles * live
     return int(2 * p * int(cycles.sum()))
 
 
@@ -105,6 +132,215 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     b = n_bytes / HBM_BYTES_PER_S * 1e3
     o = n_ops / F32_OPS_PER_S * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+# ------------------------------------------------- the padded kernels
+def half_grid(rng, shape):
+    """Weights on the half-integer grid with some off-grid jitter: x.5
+    values are routine under mu = 0.5 and are where rounding modes
+    disagree."""
+    import numpy as np
+
+    w = rng.integers(0, 15, shape).astype(np.float32) / 2
+    jitter = rng.uniform(0, 0.01, shape).astype(np.float32) * (rng.random(shape) < 0.3)
+    return np.clip(w + jitter, 0, 7)
+
+
+# (d, p, q, v_blk, n_valid, wta_k, stabilize)
+BLOCK_CASES = (
+    (1, 270, 50, 32, 32, 1, True),
+    (1, 270, 50, 32, 9, 2, False),
+    (4, 270, 50, 32, 20, 2, True),
+    (4, 270, 50, 7, 7, 1, False),
+    (4, 637, 2, 7, 4, 2, True),
+    (4, 270, 25, 1, 1, 1, True),
+    (4, 637, 2, 32, 32, 1, False),
+)
+
+
+def check_fused_block(fused_column, dev) -> float:
+    """Phase 4: the volley-block kernel against its plain version; returns
+    the largest difference (0 when it passes)."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for case in BLOCK_CASES + ((2, 40, 6, 4, 2, 1, False),):
+        d, p, q, v_blk, n_valid, k, stab = case
+        degenerate = case == (2, 40, 6, 4, 2, 1, False)
+        rng = np.random.default_rng(d * 1000 + p + q + v_blk + n_valid)
+        t_window = 16 if degenerate else 64
+        w = torch.from_numpy(half_grid(rng, (d, p, q)))
+        t_in = rng.integers(0, t_window + 8, (d, v_blk, p)).astype(np.float32)
+        thr = rng.uniform(0.1, 0.4, d) * p * 3.5
+        tm = rng.integers(t_window // 2, t_window + 1, d)
+        qa = rng.integers(max(1, q // 2), q + 1, d)
+        tm[-1], qa[0] = t_window, q
+        if degenerate:  # threshold 0 fires a silent volley: only n_valid masks it
+            thr[:] = 0.0
+            t_in[:, n_valid:] = t_window
+        mus = (rng.choice([0.5, 1.0], d), rng.choice([0.5, 1.0], d),
+               rng.choice([1 / 1024, 0.5], d))
+        ops = fused_column.design_operands(thr, tm, qa, *mus)
+        t_in = torch.from_numpy(t_in)
+        kw = dict(t_window=t_window, w_max=7, wta_k=k, stabilize=stab)
+        ref = fused_column.fused_block_padded_plain(w, t_in, ops, n_valid, **kw)
+        got = fused_column.fused_block_padded(
+            w.to(dev), t_in.to(dev), ops.to(dev), n_valid, **kw).cpu()
+        dw = float((got - ref).abs().max())
+        worst = max(worst, dw)
+        log(f"[fused_block] D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid} "
+            f"k={k} stabilize={stab} threshold0={degenerate} max|dw|={dw}")
+        assert torch.equal(got, ref), "fused_block: weights differ"
+        if degenerate:
+            unmasked = fused_column.fused_block_padded_plain(w, t_in, ops, v_blk, **kw)
+            assert not torch.equal(unmasked, ref), "tail case does not test the mask"
+    return worst
+
+
+def check_fire_block(fused_column, dev) -> float:
+    """Phase 5: the batched-fire kernel against its plain version, times
+    and ids; returns the largest difference."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for n, p, q in ((905, 270, 50), (905, 637, 2)):
+        d = 4
+        rng = np.random.default_rng(n + p + q)
+        w = torch.from_numpy(half_grid(rng, (d, p, q)))
+        xs = torch.from_numpy(rng.integers(0, 72, (d, n, p)).astype(np.float32))
+        tm = torch.tensor([64.0, 40.0, 33.0, 64.0])
+        qa = torch.tensor([float(q), max(1.0, q - 3.0), 1.0, float(q)])
+        ops = fused_column.design_operands(
+            rng.uniform(0.1, 0.4, d) * p * 3.5, tm.numpy(), qa.numpy(), 0.0, 0.0, 0.0)
+        ref = fused_column.fire_block_padded_plain(w, xs, ops, t_window=64, w_max=7)
+        got = fused_column.fire_block_padded(
+            w.to(dev), xs.to(dev), ops.to(dev), t_window=64, w_max=7)
+        ids = fused_column._ids_from_times(got, tm.to(dev), qa.to(dev)).cpu()
+        got = got.cpu()
+        ids_ref = fused_column._ids_from_times(ref, tm, qa)
+        dt = float((got - ref).abs().max())
+        worst = max(worst, dt)
+        log(f"[fire_block] D={d} N={n} {p}x{q} max|dt|={dt} "
+            f"ids equal={torch.equal(ids, ids_ref)}")
+        assert torch.equal(got, ref), "fire_block: firing times differ"
+        assert torch.equal(ids, ids_ref), "fire_block: ids differ"
+    return worst
+
+
+def sweep_designs(ColumnConfig, STDPConfig, simulator, grid: bool):
+    """12 WordSynonyms designs as dse.space.candidate_config builds them:
+    q x t_max x threshold scale times suggest_threshold."""
+    stdp = (STDPConfig(mu_capture=1.0, mu_backoff=1.0, mu_search=1.0,
+                       stabilizer="none") if grid else STDPConfig())
+    cfgs = []
+    for q in (25, 50):
+        for t_max in (32, 64):
+            for scale in (0.75, 1.0, 1.25):
+                c = ColumnConfig(p=270, q=q, t_max=t_max, stdp=stdp)
+                cfgs.append(c.with_threshold(scale * simulator.suggest_threshold(c)))
+    return cfgs
+
+
+def sweep_w_init(cfgs, grid: bool, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if grid:
+        return [rng.integers(0, 8, (c.p, c.q)).astype(np.float32) for c in cfgs]
+    return [rng.uniform(0, 7, (c.p, c.q)).astype(np.float32) for c in cfgs]
+
+
+def padded_sweep_inputs(simulator, fused_column, cfgs, w_list, x):
+    """The operands ``simulator._sweep_bucket`` builds for one bucket of
+    all ``cfgs``: weights [D, p, q_env], volleys [D, N, p] f32 (each
+    design's own encoding), operands [D, 6]."""
+    import torch
+
+    d, q_env = len(cfgs), max(c.q for c in cfgs)
+    p = cfgs[0].p
+    w = torch.zeros((d, p, q_env), device=x.device)
+    for j, (c, wj) in enumerate(zip(cfgs, w_list)):
+        w[j, :, : c.q] = torch.as_tensor(wj, device=x.device)
+    xs = torch.stack([simulator._encode(x, c, "latency") for c in cfgs]).float()
+    c0 = cfgs[0]
+    ops = fused_column.design_operands(
+        [c.neuron.threshold for c in cfgs], [c.t_max for c in cfgs],
+        [c.q for c in cfgs], c0.stdp.mu_capture, c0.stdp.mu_backoff,
+        c0.stdp.mu_search, device=x.device)
+    return w.contiguous(), xs.contiguous(), ops
+
+
+def record_calls(module, name: str, sink: list):
+    """Wrap ``module.name`` so that every call keeps a copy of its
+    arguments in ``sink``; returns the function that unwraps it."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        sink.append(([a.clone() for a in args], dict(kwargs)))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def check_path_fire_calls(fused_column, calls) -> float:
+    """Phase 5, second half: the batched-fire kernel against its plain
+    version on the inputs that the sweep path gave it; returns the
+    largest difference."""
+    import torch
+
+    worst = 0.0
+    for (w, xs, ops), kw in calls:
+        got = fused_column.fire_block_padded(w, xs, ops, **kw)
+        ref = fused_column.fire_block_padded_plain(w, xs, ops, **kw)
+        ids = fused_column._ids_from_times(got, ops[:, 1], ops[:, 2])
+        ids_ref = fused_column._ids_from_times(ref, ops[:, 1], ops[:, 2])
+        dt = float((got - ref).abs().max())
+        worst = max(worst, dt)
+        d, n, p = xs.shape
+        log(f"[fire_block] path launch D={d} N={n} {p}x{w.shape[2]} "
+            f"max|dt|={dt} ids equal={torch.equal(ids, ids_ref)}")
+        assert torch.equal(got, ref), "fire_block: firing times differ on the path"
+        assert torch.equal(ids, ids_ref), "fire_block: ids differ on the path"
+    return worst
+
+
+def fire_bound(fused_column, w, xs, ops, kw) -> tuple[int, int]:
+    """Bytes and operations of one batched-fire launch on these inputs:
+    volleys, weights and operands read once, times written once; the
+    fire's min+add pairs of every live neuron up to its crossing."""
+    import torch
+
+    d, n, p = xs.shape
+    q = w.shape[2]
+    tf = fused_column.fire_block_padded_plain(w, xs, ops, **kw)
+    live = (torch.arange(q, device=w.device) < ops[:, 2:3, None]).long()
+    n_bytes = 4 * (d * n * p + d * p * q + d * 6 + d * n * q)
+    return n_bytes, fire_ops(p, tf, ops[:, 1:2, None], live)
+
+
+def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int]:
+    """Bytes and operations of one volley-block launch on these inputs:
+    the weights read and written once, the volleys and operands read
+    once; the fire's min+add pairs volley by volley on the weights each
+    volley sees, and ~10 operations per live synapse for its STDP."""
+    import torch
+
+    d, p, q = w.shape
+    v_blk = blk.shape[1]
+    n_bytes = 4 * (2 * d * p * q + d * v_blk * p + d * 6)
+    tm, qa = ops[:, 1:2, None], ops[:, 2:3, None]
+    live = (torch.arange(q, device=w.device) < qa).long()
+    n_ops = 0
+    for vi in range(v_blk):
+        one = blk[:, vi : vi + 1].contiguous()
+        t = fused_column.fire_block_padded_plain(
+            w, one, ops, t_window=kw["t_window"], w_max=kw["w_max"])
+        n_ops += fire_ops(p, t, tm, live) + 10 * p * int(live.sum())
+        w = fused_column.fused_block_padded_plain(w, one, ops, 1, **kw)
+    return n_bytes, n_ops
 
 
 # ------------------------------------------------------------------ main
@@ -122,7 +358,10 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.tnn_columns import all_benchmarks, column_config
-    from repro_torch.core import column, simulator
+    from repro_torch.core import column, network, simulator
+    from repro_torch.core.types import (
+        ColumnConfig, LayerConfig, NetworkConfig, STDPConfig,
+    )
     from repro_torch.data import ucr
     from repro_torch.kernels import build, fused_column, rnl_response
 
@@ -147,9 +386,7 @@ def main() -> int:
     # 2 — fused step against its plain version
     def fused_case(d, p, q, seed, hetero):
         rng = np.random.default_rng(seed)
-        w = rng.integers(0, 15, (d, p, q)).astype(np.float32) / 2
-        w = np.clip(w + rng.uniform(0, 0.01, w.shape).astype(np.float32)
-                    * (rng.random(w.shape) < 0.3), 0, 7)
+        w = half_grid(rng, (d, p, q))
         t_in = rng.integers(0, 72, (d, p)).astype(np.float32)
         if hetero:
             thr = rng.uniform(0.1, 0.4, d) * p * 3.5
@@ -196,7 +433,11 @@ def main() -> int:
         log(f"[rnl_fire] B={b} {p}x{q} max|dt|={diff}")
         assert torch.equal(got.cpu(), ref), "rnl_fire: firing times differ"
 
-    # 4 — the main path, launch counters reset just before it
+    # 4, 5 — the padded kernels against their plain versions
+    err["fused_block"] = check_fused_block(fused_column, dev)
+    err["fire_block"] = check_fire_block(fused_column, dev)
+
+    # 6 — the single-column path, launch counters reset just before it
     designs = {}
     for name in all_benchmarks():
         cfg = column_config(name)
@@ -240,9 +481,9 @@ def main() -> int:
             else:
                 assert grew["rnl_fire"] == 0, grew
     launches = {k.name: k.launches for k in build.KERNELS}
-    log(f"[main] launches over the main path: {launches}")
-    for k in build.KERNELS:
-        assert launches[k.name] > 0, f"{k.name} never launched on the main path"
+    log(f"[main] launches over the single-column path: {launches}")
+    for k in (build.FUSED_STEP, build.RNL_FIRE):
+        assert launches[k.name] > 0, f"{k.name} never launched on its path"
 
     for name in CPU_CHECKED:
         cfg, ds, w0 = designs[name]
@@ -260,7 +501,120 @@ def main() -> int:
             assert same, f"{name} {mode}: card and CPU assignments differ"
             assert cpu.rand_index == gpu.rand_index
 
-    # 5 — timing at the main path's shapes
+    # 7 — the sweep path, launch counters reset just before it
+    ws = designs["WordSynonyms"][1]
+    n_ws = ws.x.shape[0]
+    blocks = -(-n_ws // 32)
+    sweeps = {}
+    fire_calls: list = []  # the integer-grid sweep's batched-fire inputs
+    for k in build.KERNELS:
+        k.launches = 0
+    for name, grid, max_bucket, seed in (("default", False, None, 1),
+                                         ("grid", True, 8, 2)):
+        cfgs = sweep_designs(ColumnConfig, STDPConfig, simulator, grid)
+        w_init = sweep_w_init(cfgs, grid, seed)
+        before = {k.name: k.launches for k in build.KERNELS}
+        unwrap = record_calls(fused_column, "fire_block_padded", fire_calls)
+        try:
+            res = simulator.cluster_time_series_many(
+                ws.x, ws.y, cfgs, epochs=EPOCHS, w_init=w_init,
+                max_bucket=max_bucket, device="cuda")
+        finally:
+            unwrap()
+        grew = {k.name: k.launches - before[k.name] for k in build.KERNELS}
+        sweeps[name] = (cfgs, w_init, res)
+        n_b = res[0].buckets
+        log(f"[sweep] {name} D={len(cfgs)} 270x(25,50) N={n_ws} buckets={n_b} "
+            f"train_seconds={res[0].train_seconds!r} launches={grew} card={card}")
+        for c, r in zip(cfgs, res):
+            log(f"[sweep] {name} q={c.q} t_max={c.t_max} "
+                f"threshold={c.neuron.threshold} RI={r.rand_index!r} "
+                f"lowering={r.lowering} retries={r.retries} plan={r.plan}")
+            assert isinstance(r, simulator.ClusteringResult), r
+            assert r.lowering == "cuda" and r.retries == 0, (r.lowering, r.retries)
+            assert r.assignments.shape == (n_ws,)
+            assert np.all((r.assignments >= 0) & (r.assignments <= c.q))
+            assert bool(torch.isfinite(r.params["w"]).all())
+            assert 0.0 <= r.rand_index <= 1.0
+        assert n_b == (2 if grid else 1), n_b
+        assert grew["fused_block"] == n_b * EPOCHS * blocks, grew
+        assert grew["fused_step"] == 0 and grew["rnl_fire"] == 0, grew
+        if grid:
+            assert grew["fire_block"] >= 1, grew
+        else:
+            assert grew["fire_block"] == 0, grew
+        assert len(fire_calls) == grew["fire_block"], len(fire_calls)
+
+    # assignment alone, one integer-grid design
+    cfgs, _, res = sweeps["grid"]
+    before = build.FIRE_BLOCK.launches
+    ids = simulator.assign_time_series(ws.x, cfgs[1], res[1].params, device="cuda")
+    log(f"[assign] grid design 1 equal to its sweep ids="
+        f"{bool(np.array_equal(ids, res[1].assignments))} fire_block launches="
+        f"{build.FIRE_BLOCK.launches - before}")
+    assert build.FIRE_BLOCK.launches - before == 1
+    assert np.array_equal(ids, res[1].assignments)
+
+    # two-layer network shaped like examples/design_nspu.py: two full
+    # columns feed a read-out column.  Only one input per upstream column
+    # spikes (1-WTA), so the read-out's threshold is a quarter of those two
+    # inputs' saturated potential, as suggest_threshold sets it for p live
+    # inputs
+    c1 = ColumnConfig(p=270, q=25, t_max=64)
+    c1 = c1.with_threshold(simulator.suggest_threshold(c1))
+    c2 = ColumnConfig(p=50, q=25, t_max=64).with_threshold(0.25 * 2 * 7)
+    net = NetworkConfig(layers=(LayerConfig(columns=2, column=c1),
+                                LayerConfig(columns=1, column=c2)))
+    net_w0 = network.init_params(net, 270, torch.Generator().manual_seed(0), "cpu")
+    before = build.FUSED_BLOCK.launches
+    net_res = simulator.cluster_time_series_network(
+        ws.x, ws.y, net, epochs=EPOCHS, device="cuda", params=net_w0)
+    grew = build.FUSED_BLOCK.launches - before
+    log(f"[network] 2x270x25 -> 1x50x25 N={n_ws} RI={net_res.rand_index!r} "
+        f"train_seconds={net_res.train_seconds!r} lowering={net_res.lowering} "
+        f"fused_block launches={grew} card={card}")
+    assert net_res.lowering == "cuda"
+    assert grew == 2 * EPOCHS * blocks, grew
+    assert net_res.assignments.shape == (n_ws,)
+    assert 0.0 <= net_res.rand_index <= 1.0
+    sweep_launches = {k.name: k.launches for k in build.KERNELS}
+    log(f"[sweep] launches over the sweep path: {sweep_launches}")
+    for k in (build.FUSED_BLOCK, build.FIRE_BLOCK):
+        assert sweep_launches[k.name] > 0, f"{k.name} never launched on its path"
+    assert sweep_launches["fused_step"] == 0
+
+    # 5, second half — the batched fire on the sweep path's own inputs
+    err["fire_block"] = max(err["fire_block"],
+                            check_path_fire_calls(fused_column, fire_calls))
+
+    # 8 — the sweep path on the CPU from the same initial weights; a
+    # 2-design sweep is a valid comparison, since no result depends on
+    # the bucket a design rides in
+    for name, (cfgs, w_init, res) in sweeps.items():
+        pick = (0, 11)
+        t0 = time.perf_counter()
+        cpu = simulator.cluster_time_series_many(
+            ws.x, ws.y, [cfgs[i] for i in pick], epochs=EPOCHS,
+            w_init=[w_init[i] for i in pick], device="cpu")
+        for j, i in enumerate(pick):
+            same_a = bool(np.array_equal(cpu[j].assignments, res[i].assignments))
+            same_w = torch.equal(cpu[j].params["w"], res[i].params["w"].cpu())
+            log(f"[cpu-check] {name} design {i} equal_assignments={same_a} "
+                f"RI cpu={cpu[j].rand_index!r} card={res[i].rand_index!r} "
+                f"weights equal={same_w} cpu_seconds={time.perf_counter() - t0:.1f}")
+            assert cpu[j].lowering == "reference"
+            assert same_a and same_w, f"{name} design {i}: card and CPU differ"
+            assert cpu[j].rand_index == res[i].rand_index
+    cpu_net = simulator.cluster_time_series_network(
+        ws.x, ws.y, net, epochs=EPOCHS, device="cpu", params=net_w0)
+    same_w = all(torch.equal(a["w"], b["w"].cpu()) for a, b in zip(
+        cpu_net.params["layers"], net_res.params["layers"]))
+    same_a = bool(np.array_equal(cpu_net.assignments, net_res.assignments))
+    log(f"[cpu-check] network equal_assignments={same_a} RI cpu="
+        f"{cpu_net.rand_index!r} card={net_res.rand_index!r} weights equal={same_w}")
+    assert same_a and same_w and cpu_net.rand_index == net_res.rand_index
+
+    # 9 — timing at the paths' shapes
     timer = Timer(torch)
     rows = {}
     for name, (cfg, ds, _) in designs.items():
@@ -304,17 +658,68 @@ def main() -> int:
             f"rnl_fire B={n} ms={r_ms!r} plain_ms={r_plain!r} "
             f"bound_ms={rows[name]['rnl'][2]!r} ({rows[name]['rnl'][3]}) | {card}")
 
-    # 6 — the kernels line (shapes: WordSynonyms, the widest column)
+    # the padded kernels at the sweep's shapes: D = 12 at 270 x 50
+    x_ws = torch.as_tensor(ws.x, dtype=torch.float32, device=dev)
+    cfgs, w_init, _ = sweeps["default"]
+    w, xs, ops = padded_sweep_inputs(simulator, fused_column, cfgs, w_init, x_ws)
+    blk = xs[:, :32].contiguous()  # the first block of volleys
+    c0 = cfgs[0]
+    kw = dict(t_window=64, w_max=c0.neuron.w_max, wta_k=c0.wta.k,
+              stabilize=c0.stdp.stabilizer == "half")
+    b_ms = timer(lambda: fused_column.fused_block_padded(w, blk, ops, 32, **kw), 20)
+    b_plain = timer(lambda: fused_column.fused_block_padded_plain(
+        w, blk, ops, 32, **kw), 3, warmup=1)
+    b_bytes, b_ops = block_bound(fused_column, w, blk, ops, kw)
+    rows["sweep"] = dict(
+        block=(b_ms, b_plain, *bound_ms(b_bytes, b_ops), b_bytes, b_ops))
+    log(f"[time] sweep D={w.shape[0]} {w.shape[1]}x{w.shape[2]} fused_block "
+        f"v_blk=32 ms={b_ms!r} plain_ms={b_plain!r} "
+        f"bound_ms={rows['sweep']['block'][2]!r} ({rows['sweep']['block'][3]}; "
+        f"{b_bytes} B, {b_ops} ops) | {card}")
+    # the batched fire on each launch of the integer-grid sweep, on that
+    # launch's own inputs; the kernels line sums the sweep's launches
+    fire_sum = [0.0, 0.0, 0.0, 0.0, 0.0]  # ms, plain, bound, bytes-ms, ops-ms
+    shapes = []
+    for (w, xs, ops), fire_kw in fire_calls:
+        g_ms = timer(lambda: fused_column.fire_block_padded(w, xs, ops, **fire_kw), 20)
+        g_plain = timer(lambda: fused_column.fire_block_padded_plain(
+            w, xs, ops, **fire_kw), 2, warmup=1)
+        g_bytes, g_ops = fire_bound(fused_column, w, xs, ops, fire_kw)
+        g_bound, g_by = bound_ms(g_bytes, g_ops)
+        d, n, p = xs.shape
+        shapes.append(f"D={d} {p}x{w.shape[2]}")
+        for i, v in enumerate((g_ms, g_plain, g_bound,
+                               g_bytes / HBM_BYTES_PER_S * 1e3,
+                               g_ops / F32_OPS_PER_S * 1e3)):
+            fire_sum[i] += v
+        log(f"[time] grid sweep launch D={d} {p}x{w.shape[2]} fire_block N={n} "
+            f"ms={g_ms!r} plain_ms={g_plain!r} bound_ms={g_bound!r} ({g_by}; "
+            f"{g_bytes} B, {g_ops} ops) | {card}")
+    rows["sweep"]["fire"] = (
+        fire_sum[0], fire_sum[1], fire_sum[2],
+        "bytes" if fire_sum[3] >= fire_sum[4] else "operations")
+    log(f"[time] grid sweep fire_block, {len(fire_calls)} launches "
+        f"({' + '.join(shapes)}, N={n_ws}) ms={fire_sum[0]!r} "
+        f"plain_ms={fire_sum[1]!r} bound_ms={fire_sum[2]!r} "
+        f"({rows['sweep']['fire'][3]}) | {card}")
+
+    # 10 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]
+    path_launches = dict(launches, fused_block=sweep_launches["fused_block"],
+                         fire_block=sweep_launches["fire_block"])
     entries = []
-    n_ws = wsr["rnl"][6]
-    for k, key, shape in ((build.FUSED_STEP, "fused", "D=1 270x25 t_max=64"),
-                          (build.RNL_FIRE, "rnl", f"B={n_ws} 270x25 t_max=64")):
-        r = wsr[key]
+    for k, r, shape in (
+        (build.FUSED_STEP, wsr["fused"], "D=1 270x25 t_max=64"),
+        (build.RNL_FIRE, wsr["rnl"], f"B={n_ws} 270x25 t_max=64"),
+        (build.FUSED_BLOCK, rows["sweep"]["block"], "D=12 270x50 v_blk=32 t_window=64"),
+        (build.FIRE_BLOCK, rows["sweep"]["fire"],
+         f"sum of the grid sweep's launches: {' + '.join(shapes)}, "
+         f"N={n_ws} t_window=64"),
+    ):
         entries.append({
             "name": k.name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k.source}",
-            "replaces": k.replaces.split()[0], "launches": launches[k.name],
+            "replaces": k.replaces.split()[0], "launches": path_launches[k.name],
             "max_abs_err": err[k.name], "ms": r[0], "plain_ms": r[1],
             "bound_ms": r[2], "bound_by": r[3], "library_ms": None,
             "shape": shape,

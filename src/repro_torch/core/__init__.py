@@ -12,4 +12,4 @@ from repro_torch.core.types import (  # noqa: F401
     WTAConfig,
     no_spike,
 )
-from repro_torch.core import column, encoding, neuron, simulator, stdp, wta  # noqa: F401
+from repro_torch.core import column, encoding, network, neuron, simulator, stdp, wta  # noqa: F401

@@ -17,6 +17,13 @@
   to their plain PyTorch versions (``'reference'``).  A CUDA tensor on any
   other card raises: the kernels are built for sm_90a only.
 
+* **Padded-scan policy**: ``volley_block`` / ``execution_plan`` (the
+  constants plan: no device calibration yet), ``assign_lowering``, the
+  degradation ladder (``lowering_ladder``, ``cycle_exact``) and the
+  envelope bucket policy (``envelope_buckets``).  The sweep and network
+  layers call ``fused_column.fit_scan_padded`` / ``assign_padded``
+  directly, with the ``v_blk`` of their plan.
+
 * **Resolution**: ``resolve(mode, cfg, training=...)`` maps the public
   ``mode`` knob to a registry name; 'auto' keeps the paper's hybrid
   forward (event where exact, cycle for LIF) and trains on the fused path
@@ -25,13 +32,14 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.core import neuron, stdp, wta
 from repro_torch.core.types import ColumnConfig, TIME_DTYPE
 from repro_torch.kernels import fused_column
+from repro_torch.roofline import costmodel
 
 
 # ----------------------------------------------------------- central policy
@@ -73,6 +81,143 @@ def padded_lowering(response: str, t: torch.Tensor) -> str:
     if response in fused_column.fire_responses(low):
         return low
     return "reference"
+
+
+def volley_block(
+    lowering: str, n_volleys: int, d: Optional[int] = None
+) -> int:
+    """Volleys the padded training scan folds per block, the constants
+    policy of the JAX package: 32 for the kernel lowering (one launch per
+    block), 8 for 'reference', capped at ``max(2, 2 d)`` when the design
+    axis ``d`` is known, and never more than the stream.  Results do not
+    depend on it."""
+    return costmodel.const_v_blk(lowering, n_volleys, d)
+
+
+def execution_plan(kind: str, lowering: str, d: int, n_volleys: int):
+    """The ``ExecutionPlan`` of a padded scan.  Without a device
+    calibration (the port has none yet) it is the constants plan, as the
+    JAX package's is on an uncalibrated host."""
+    return costmodel.constants_plan(
+        kind, lowering, d, n_volleys, shards=design_shards(d)
+    )
+
+
+def assign_lowering(response: str, w: torch.Tensor) -> str:
+    """Lowering of the batched assignment pass, given the trained weights.
+
+    The assignment kernel fires the integer weight grid, the reference
+    body the float weights.  So the kernel is a pure lowering choice only
+    when the weights already sit on the grid (after integer-mu,
+    unstabilized training from integer init); off-grid weights take the
+    reference body on every device.
+    """
+    low = padded_lowering(response, w)
+    if low == "reference":
+        return low
+    return low if bool(torch.all(w == torch.round(w))) else "reference"
+
+
+# ------------------------------------------------- lowering degradation
+# The fused-scan lowerings.  A failing evaluation never changes device:
+# on the card a kernel that does not build or launch raises, or has its
+# design quarantined, and never turns into plain PyTorch on the card, so
+# 'cuda' is a ladder of one rung.  'reference' (the plain versions, on
+# the CPU, or for SNL on any device) has the 'cycle' solver below it
+# where that is provably bit-identical (``cycle_exact``).  The JAX
+# package's 'interpret' rung has no counterpart (a CUDA kernel has no
+# interpreter).
+LOWERING_LADDER = ("cuda", "reference")
+
+# Bound on attempts per evaluation: the fused rung plus the optional
+# 'cycle' rung.  A deterministic scan repeats its failure, so no rung is
+# tried twice.
+MAX_EVAL_RETRIES = 2
+
+
+def lowering_ladder(start: str, cycle_exact: bool = False) -> tuple[str, ...]:
+    """Rungs a fused evaluation starting at ``start`` may try
+    (``cluster_time_series_many(on_error='isolate')``): ``start`` itself,
+    then, below 'reference' only, the 'cycle' solver when
+    ``cycle_exact=True`` (legal only where ``cycle_exact(cfg, w0)``
+    holds).  Every rung computes the same algebra, so a step down changes
+    how a result is computed, never what it is."""
+    if start == "cycle":
+        return ("cycle",)
+    if start not in LOWERING_LADDER:
+        raise ValueError(
+            f"unknown lowering: {start!r} (have {LOWERING_LADDER + ('cycle',)})"
+        )
+    if start == "cuda":
+        return ("cuda",)
+    return (start,) + (("cycle",) if cycle_exact else ())
+
+
+def cycle_exact(cfg: ColumnConfig, w0) -> bool:
+    """True iff the 'cycle' solver is bit-identical to the fused path for
+    this design: integer STDP steps, no stabilizer, expected mode, and
+    integral initial weights, so training never leaves the grid that the
+    fused fire rounds to."""
+    s = cfg.stdp
+    if s.stabilizer != "none" or s.mode != "expected":
+        return False
+    if not all(
+        float(mu).is_integer()
+        for mu in (s.mu_capture, s.mu_backoff, s.mu_search)
+    ):
+        return False
+    w0 = torch.as_tensor(w0)
+    return bool(torch.all(w0 == torch.round(w0)))
+
+
+# ---------------------------------------------------- bucket / shard policy
+# A design joins a shared padding envelope only while padding inflates no
+# member's per-volley fire volume (p * q * t_max) beyond this factor:
+# padded work recurs every volley, so a small design must not ride a
+# large design's envelope.
+ENVELOPE_WASTE_CAP = costmodel.CONST_WASTE_CAP
+
+
+def envelope_buckets(
+    shapes: Sequence[tuple[int, int, int]],
+    waste_cap: Optional[float] = None,
+    max_bucket: Optional[int] = None,
+) -> list[tuple[tuple[int, int, int], list[int]]]:
+    """Pack (p, q, t_max) design shapes into shared padding envelopes.
+
+    Greedy, largest fire volume first: a design joins the first bucket
+    whose grown envelope (the elementwise max) keeps every member's
+    volume within ``waste_cap`` (None: ``ENVELOPE_WASTE_CAP``) and that
+    holds fewer than ``max_bucket`` designs (None: unbounded).  Returns
+    ``[(envelope, member_indices), ...]``; every index lands in exactly
+    one bucket.  Bucketing never changes a result: a design trains the
+    same under any envelope that contains it.
+    """
+    if waste_cap is None:
+        waste_cap = ENVELOPE_WASTE_CAP
+    vols = [p * q * t for (p, q, t) in shapes]
+    order = sorted(range(len(shapes)), key=lambda i: -vols[i])
+    buckets: list[tuple[tuple[int, int, int], list[int]]] = []
+    for i in order:
+        p, q, t = shapes[i]
+        for bi, (env, members) in enumerate(buckets):
+            if max_bucket is not None and len(members) >= max_bucket:
+                continue
+            cand = (max(env[0], p), max(env[1], q), max(env[2], t))
+            vol = cand[0] * cand[1] * cand[2]
+            if all(vol <= waste_cap * vols[m] for m in members + [i]):
+                buckets[bi] = (cand, members + [i])
+                break
+        else:
+            buckets.append(((p, q, t), [i]))
+    return buckets
+
+
+def design_shards(d: int) -> int:
+    """Cards a bucket's design axis of length ``d`` is split across: 1.
+    The port runs a sweep on one card; splitting the (collective-free)
+    design axis across cards is queued work."""
+    return 1
 
 
 # ------------------------------------------------------------- generic fit

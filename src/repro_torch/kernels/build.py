@@ -70,6 +70,9 @@ class CudaKernel:
     symbol: str
     argtypes: tuple
     replaces: str
+    # argument types of the ``<symbol>_smem_bytes`` entry point: the
+    # shape dimensions that size the block's shared memory
+    smem_argtypes: tuple = (ctypes.c_int, ctypes.c_int)
     launches: int = 0
     ptxas_log: str = ""
     _fn: Optional[object] = dataclasses.field(default=None, repr=False)
@@ -102,19 +105,31 @@ class CudaKernel:
         fn.argtypes = list(self.argtypes)
         fn.restype = ctypes.c_int
         smem = getattr(lib, self.symbol + "_smem_bytes")
-        smem.argtypes = [_I, _I]
+        smem.argtypes = list(self.smem_argtypes)
         smem.restype = ctypes.c_size_t
         self._lib, self._fn, self._smem = lib, fn, smem
 
     def function(self):
-        """The bound C entry point, building the library on first use."""
+        """The bound C entry point.  The first use of any kernel builds
+        every kernel of ``KERNELS``, one ``nvcc`` each, in parallel."""
         if self._fn is None:
-            build_all([self])
+            build_all(KERNELS)
         return self._fn
 
-    def smem_bytes(self, p: int, q: int) -> int:
+    def smem_bytes(self, *dims: int) -> int:
+        """Shared memory one thread block needs at these dimensions."""
         self.function()
-        return int(self._smem(p, q))
+        return int(self._smem(*dims))
+
+    def check_smem(self, what: str, *dims: int) -> None:
+        """Raise ValueError when one thread block at these dimensions needs
+        more shared memory than a block may use on an H100."""
+        smem = self.smem_bytes(*dims)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"{self.name}: {what} needs {smem} B of shared memory "
+                f"(at most {MAX_SMEM_BYTES})"
+            )
 
 
 def _finish(kernel: CudaKernel, started) -> None:
@@ -172,4 +187,21 @@ RNL_FIRE = CudaKernel(
     replaces="src/repro/kernels/rnl_response.py:49 _rnl_kernel",
 )
 
-KERNELS = (FUSED_STEP, RNL_FIRE)
+FUSED_BLOCK = CudaKernel(
+    name="fused_block",
+    source="fused_block.cu",
+    symbol="tnn_fused_block",
+    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    replaces="src/repro/kernels/fused_column.py:596 _fused_block_kernel",
+    smem_argtypes=(_I, _I, _I),
+)
+
+FIRE_BLOCK = CudaKernel(
+    name="fire_block",
+    source="fire_block.cu",
+    symbol="tnn_fire_block",
+    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    replaces="src/repro/kernels/fused_column.py:1019 _fire_block_kernel",
+)
+
+KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK)

@@ -16,10 +16,13 @@
 //    reduction does not matter;
 //  * the sources are built with --fmad=false and the STDP arithmetic uses
 //    the _rn intrinsics, so w + mu * s is never contracted into an FMA;
-//  * the stabilizer divides by w_max with IEEE division (__fdiv_rn), as the
-//    JAX reference lowering and the plain PyTorch version do.  The TPU
-//    kernel multiplied by the reciprocal instead, which can differ by an
-//    ulp.
+//  * the stabilizer is computed as XLA compiles the JAX package's fused
+//    lowerings (its reference body and its interpreted TPU kernels):
+//    frac = w * (1 / w_max) with the reciprocal rounded to f32, and
+//    s_plus = (1 + eps) - frac with 1 + eps rounded to f32 (XLA's
+//    simplifier folds the source's (1 - frac) + eps that way).  The plain
+//    PyTorch versions (ref.stdp_ref with compiled=True) do the same, so card,
+//    CPU and the JAX package agree bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,7 +94,7 @@ __device__ __forceinline__ void warp_wta(
   }
 }
 
-// Expected STDP for one synapse (the algebra of kernels/ref.stdp_ref),
+// Expected STDP for one synapse (the algebra of ref.stdp_ref, compiled=True),
 // clamped to [0, w_max].  eps = 1 / (2 w_max) arrives rounded to f32 by
 // the host, as the JAX and PyTorch versions round their constant.
 __device__ __forceinline__ float stdp_synapse(
@@ -102,8 +105,9 @@ __device__ __forceinline__ float stdp_synapse(
   const bool ys = y < t_max;
   float s_plus = 1.0f, s_minus = 1.0f;
   if (stabilize) {
-    const float frac = fminf(fmaxf(__fdiv_rn(w, w_max), 0.0f), 1.0f);
-    s_plus = __fadd_rn(__fsub_rn(1.0f, frac), eps);
+    const float inv = __fdiv_rn(1.0f, w_max);
+    const float frac = fminf(fmaxf(__fmul_rn(w, inv), 0.0f), 1.0f);
+    s_plus = __fsub_rn(__fadd_rn(1.0f, eps), frac);
     s_minus = __fadd_rn(frac, eps);
   }
   float delta = 0.0f;

@@ -17,6 +17,18 @@ lowerings behind the same semantics:
   nondecreasing, so the count of sub-threshold cycles *is* the first
   crossing.
 
+The padded half serves the design sweep and network layers: D designs in
+one (p, q, t_window) envelope, their scalars runtime operands.
+
+* ``fit_scan_padded`` advances epochs x volleys in blocks of ``v_blk``:
+  ``fused_block_padded`` wraps ``csrc/fused_block.cu`` (port of
+  ``_fused_block_kernel``), one launch folding a whole block in order
+  with the weights on chip; ``fused_block_padded_plain`` is its plain
+  version and the reference lowering.  Blocking never changes a result.
+* ``assign_padded`` fires the whole stream at once: ``fire_block_padded``
+  wraps ``csrc/fire_block.cu`` (port of ``_fire_block_kernel``) on the
+  integer grid; the reference lowering fires the float weights.
+
 Scope (``check_fusable``): ``response in ('rnl', 'snl')`` (``'rnl'`` only
 for the CUDA lowering), expected-mode STDP, index tie-break WTA.
 
@@ -82,13 +94,14 @@ def fire_dense_ref(
     t_window: int,
     t_max=None,
     response: str = "rnl",
+    acc_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Firing times by dense sub-threshold cycle count.
 
     w: [..., p, q]; t_in: [..., p] -> [..., q] int32.  ``threshold`` and
     ``t_max`` are numbers or tensors shaped ``[..., 1]``.  ``t_window`` is
     the evaluation length; spike times >= t_max are silent and crossings at
-    or past t_max report t_max.
+    or past t_max report t_max.  The potential is summed in ``acc_dtype``.
     """
     if t_max is None:
         t_max = t_window
@@ -102,7 +115,7 @@ def fire_dense_ref(
     else:  # snl
         s = (tv >= ti[..., None]) & live
         contrib = s[..., :, None, :].to(w.dtype) * w[..., :, :, None]
-    v = contrib.sum(dim=-3)  # [..., q, T]
+    v = contrib.sum(dim=-3, dtype=acc_dtype)  # [..., q, T]
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=t_in.device)
     thr = torch.as_tensor(threshold, dtype=torch.float32, device=t_in.device)
     if tm.dim():
@@ -146,7 +159,7 @@ def fused_step_ref(
     y = ref.wta_ref(t_fire[None], wta_k, t_max)[0]
     w_new = ref.stdp_ref(
         w, t_in, y, mu_capture, mu_backoff, mu_search, w_max, t_max,
-        stabilize=stabilize,
+        stabilize=stabilize, compiled=True,
     )
     if q_active is not None:
         w_new = torch.where(qi[None, :] < q_active, w_new, w)
@@ -200,6 +213,22 @@ def _eps(w_max: int) -> float:
     return float(np.float32(1.0 / (2 * w_max)))
 
 
+def _check_cuda_operands(name: str, tensors: tuple) -> None:
+    """The wrappers' common checks: one CUDA device, f32, contiguous."""
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(
+            f"{name} needs its tensors on one CUDA device (or all on the "
+            f"CPU), got {[str(t.device) for t in tensors]}"
+        )
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(
+            f"{name} needs float32 tensors, got {[t.dtype for t in tensors]}"
+        )
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
 def fused_step_padded_plain(
     w: torch.Tensor,
     t_in: torch.Tensor,
@@ -220,7 +249,7 @@ def fused_step_padded_plain(
     y = _wta_min_rounds(t_fire, tm, wta_k)
     w_new = ref.stdp_ref(
         w, t_in, y, mc[..., None], mb[..., None], ms[..., None], w_max,
-        tm[..., None], stabilize=stabilize,
+        tm[..., None], stabilize=stabilize, compiled=True,
     )
     w_new = torch.where((qi < qa)[:, None, :], w_new, w)
     return w_new, y
@@ -258,19 +287,7 @@ def fused_step_padded(
             w, t_in, operands, t_window=t_window, w_max=w_max,
             wta_k=wta_k, stabilize=stabilize,
         )
-    if not all(t.is_cuda and t.device == w.device for t in tensors):
-        raise ValueError(
-            "fused_step_padded needs w, t_in and operands on one CUDA "
-            "device (or all on the CPU), got "
-            f"{[str(t.device) for t in tensors]}"
-        )
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(
-            f"fused_step_padded needs float32 tensors, got "
-            f"{[t.dtype for t in tensors]}"
-        )
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("fused_step_padded needs contiguous tensors")
+    _check_cuda_operands("fused_step_padded", tensors)
     if w.dim() != 3:
         raise ValueError(f"w must be [D, p, q], got {tuple(w.shape)}")
     d, p, q = w.shape
@@ -283,12 +300,7 @@ def fused_step_padded(
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
     k = build.FUSED_STEP
-    smem = k.smem_bytes(p, q)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_step_padded: a {p} x {q} envelope needs {smem} B of "
-            f"shared memory (at most {build.MAX_SMEM_BYTES})"
-        )
+    k.check_smem(f"a {p} x {q} envelope", p, q)
     w_out = torch.empty_like(w)
     y = torch.empty((d, q), dtype=torch.float32, device=w.device)
     if d == 0:
@@ -360,3 +372,396 @@ def fit_fused(
         return {"w": w}, torch.empty((epochs, n, cfg.q), dtype=TIME_DTYPE,
                                      device=w.device)
     return {"w": w}, torch.stack(ys).to(TIME_DTYPE).reshape(epochs, n, cfg.q)
+
+
+# ------------------------------------------------------- the padded half
+# The envelope contract: D designs padded into one (p, q, t_window)
+# envelope; a design's threshold, t_max, live-neuron count and STDP mus
+# are runtime operands (``design_operands``); pad synapses and pad
+# volleys are silent (time >= every design's t_max), pad neurons sit at
+# or past ``q_active``.
+def pad_stream_silent(xs: torch.Tensor, n_total: int, sentinel) -> torch.Tensor:
+    """Pad a volley stream [n, ...] to [n_total, ...] with silent rows
+    (every time ``sentinel``, which must be >= every design's t_max).
+
+    Silent rows assign to the 'unclustered' id and, for positive
+    thresholds, are an exact weight no-op under the fused STDP step.
+    """
+    n = xs.shape[0]
+    if n > n_total:
+        raise ValueError(f"stream of {n} volleys exceeds batch of {n_total}")
+    pad = torch.full((n_total - n,) + tuple(xs.shape[1:]), sentinel,
+                     dtype=xs.dtype, device=xs.device)
+    return torch.cat([xs, pad], dim=0)
+
+
+def _pad_volley_blocks(
+    xs: torch.Tensor, v_blk: int, sentinel
+) -> tuple[torch.Tensor, list[int]]:
+    """[N, ...] volleys -> ([S, v_blk, ...] blocks, S valid counts).
+
+    The tail of the last block is silent-padded, and its valid count
+    keeps the tail out of the weight fold for any design (a silent volley
+    still fires every neuron of a design with threshold <= 0).
+    """
+    n = xs.shape[0]
+    s = -(-n // v_blk)
+    n_valid = [min(v_blk, n - v_blk * i) for i in range(s)]
+    xs = pad_stream_silent(xs, s * v_blk, sentinel)
+    return xs.reshape((s, v_blk) + tuple(xs.shape[1:])), n_valid
+
+
+def fused_block_padded_plain(
+    w: torch.Tensor,
+    t_in: torch.Tensor,
+    operands: torch.Tensor,
+    n_valid: int,
+    *,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    stabilize: bool,
+    response: str = "rnl",
+) -> torch.Tensor:
+    """Plain PyTorch version of the CUDA volley block (same arguments):
+    the first ``n_valid`` volleys of ``t_in`` [D, v_blk, p] folded in
+    order, each one fused step on the integer grid.  ``response='snl'``
+    is the reference lowering's step fire, which no kernel has."""
+    thr, tm, qa, mc, mb, ms = (operands[:, k : k + 1] for k in range(N_OPERANDS))
+    q = w.shape[2]
+    qi = torch.arange(q, dtype=torch.float32, device=w.device)
+    live = (qi < qa)[:, None, :]
+    for vi in range(min(n_valid, t_in.shape[1])):
+        x = t_in[:, vi]
+        wi = torch.round(torch.clamp(w, 0.0, float(w_max)))
+        t_fire = fire_dense_ref(wi, x, thr, t_window, tm, response)
+        t_fire = torch.where(qi < qa, t_fire.to(torch.float32), tm)
+        y = _wta_min_rounds(t_fire, tm, wta_k)
+        w_new = ref.stdp_ref(
+            w, x, y, mc[..., None], mb[..., None], ms[..., None], w_max,
+            tm[..., None], stabilize=stabilize, compiled=True,
+        )
+        w = torch.where(live, w_new, w)
+    return w
+
+
+def fused_block_padded(
+    w: torch.Tensor,
+    t_in: torch.Tensor,
+    operands: torch.Tensor,
+    n_valid: int,
+    *,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    stabilize: bool,
+) -> torch.Tensor:
+    """One volley block for D designs: the wrapper of ``csrc/fused_block.cu``.
+
+    Args:
+      w: [D, p, q] f32 weights (pad rows/columns zero).
+      t_in: [D, v_blk, p] f32 volley block per design; a time >= that
+        design's runtime ``t_max`` is silent.
+      operands: [D, N_OPERANDS] f32 runtime design operands.
+      n_valid: volleys of the block to fold; the rest fold nothing.
+
+    Returns w_new [D, p, q] after the block's sequential online updates.
+    CPU tensors take ``fused_block_padded_plain``; CUDA tensors launch the
+    kernel (or raise).
+    """
+    kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
+    tensors = (w, t_in, operands)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_block_padded_plain(w, t_in, operands, n_valid, **kw)
+    _check_cuda_operands("fused_block_padded", tensors)
+    if w.dim() != 3 or t_in.dim() != 3:
+        raise ValueError(
+            f"fused_block_padded needs w [D, p, q] and t_in [D, v_blk, p], "
+            f"got {tuple(w.shape)} and {tuple(t_in.shape)}"
+        )
+    d, p, q = w.shape
+    v_blk = t_in.shape[1]
+    if (t_in.shape[0], t_in.shape[2]) != (d, p) or tuple(operands.shape) != (
+        d, N_OPERANDS
+    ):
+        raise ValueError(
+            f"fused_block_padded: w {tuple(w.shape)} needs t_in "
+            f"{(d, v_blk, p)} and operands {(d, N_OPERANDS)}, got "
+            f"{tuple(t_in.shape)} and {tuple(operands.shape)}"
+        )
+    if wta_k < 1:
+        raise ValueError(f"wta_k must be >= 1, got {wta_k}")
+    k = build.FUSED_BLOCK
+    k.check_smem(f"a {p} x {q} envelope with v_blk={v_blk}", p, q, v_blk)
+    w_out = torch.empty_like(w)
+    if d == 0:
+        return w_out
+    fn = k.function()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        k.launches += 1
+        rc = fn(w.data_ptr(), t_in.data_ptr(), operands.data_ptr(),
+                w_out.data_ptr(), d, p, q, v_blk, int(n_valid),
+                int(t_window), int(w_max), int(wta_k), int(bool(stabilize)),
+                _eps(w_max), stream)
+    build.check_launch(k, rc)
+    return w_out
+
+
+def fit_scan_padded(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    thresholds,
+    t_maxes,
+    q_actives,
+    *,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    mu_capture,
+    mu_backoff,
+    mu_search,
+    stabilize: bool,
+    response: str,
+    epochs: int,
+    lowering: str = "reference",
+    v_blk: int,
+) -> torch.Tensor:
+    """All designs x epochs x volleys of a padded envelope, online.
+
+    ``w`` [D, p, q] f32 and ``xs`` [N, D, p] integer volleys (scan axis
+    leading, pad synapses at >= t_window), one threshold / t_max /
+    q_active per design.  The scan advances in blocks of ``v_blk``
+    volleys: ``'cuda'`` launches ``fused_block_padded`` once per block,
+    ``'reference'`` folds the same block with its plain version (RNL or
+    SNL).  Results are the same for every ``v_blk``: blocking changes the
+    schedule, never the online rule; callers take it from their
+    ``backend.execution_plan``.  ``w`` is not modified.
+    """
+    if lowering not in LOWERINGS:
+        raise ValueError(f"unknown lowering: {lowering!r}")
+    if xs.shape[0] == 0:
+        raise ValueError(
+            "fit_scan_padded needs at least one volley (got an empty "
+            "stream, N=0)"
+        )
+    if epochs == 0:
+        return w
+    if response not in fire_responses(lowering):
+        raise ValueError(
+            f"the padded {lowering} lowering supports response "
+            f"{fire_responses(lowering)}, got {response!r}; use "
+            "lowering='reference'"
+        )
+    dev = w.device
+    operands = design_operands(
+        _floats(thresholds), _floats(t_maxes), _floats(q_actives),
+        mu_capture, mu_backoff, mu_search, device=dev,
+    )
+    # volleys in blocks, design axis leading: [S, D, v_blk, p] f32
+    xsb, n_valid = _pad_volley_blocks(
+        xs.to(device=dev, dtype=torch.float32), v_blk, float(t_window)
+    )
+    xsb = xsb.permute(0, 2, 1, 3).contiguous()
+    kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
+    w = w.to(torch.float32).contiguous()
+    for _ in range(epochs):
+        for blk, nv in zip(xsb, n_valid):
+            if lowering == "cuda":
+                w = fused_block_padded(w, blk, operands, nv, **kw)
+            else:
+                w = fused_block_padded_plain(
+                    w, blk, operands, nv, response=response, **kw
+                )
+    return w
+
+
+def _floats(v) -> np.ndarray:
+    """A per-design sequence (list, array or tensor) as host floats."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float64)
+
+
+# ----------------------------------------------------- batched assignment
+def _fire_designs(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    thr: torch.Tensor,
+    tm: torch.Tensor,
+    qa: torch.Tensor,
+    t_window: int,
+    response: str,
+) -> torch.Tensor:
+    """Firing times of every volley of every design, dense and chunked.
+
+    w [D, p, q]; xs [D, N, p]; thr, tm, qa [D, 1, 1] -> [D, N, q] f32,
+    clamped to t_max, neurons at or past q_active at t_max.  The
+    potential is summed in float64: on integer-grid weights that is the
+    f32 sum exactly, and on float weights it makes the result independent
+    of the order in which the device reduces (so card and CPU agree).
+    The JAX package's reference sums float weights in float32, so a
+    potential within float32 rounding of the threshold could cross one
+    cycle apart; none did at WordSynonyms width
+    (``tests/test_torch_sweep.py``).
+    """
+    d, n, p = xs.shape
+    q = w.shape[2]
+    # volleys per chunk: bound the [D, chunk, p, q, T] transient
+    chunk = max(1, (1 << 25) // max(1, d * p * q * t_window))
+    qi = torch.arange(q, dtype=torch.float32, device=w.device)
+    out = []
+    for c in range(0, n, chunk):
+        t = fire_dense_ref(
+            w[:, None], xs[:, c : c + chunk], thr, t_window, tm, response,
+            acc_dtype=torch.float64,
+        ).to(torch.float32)
+        out.append(torch.where(qi < qa, t, tm))
+    return torch.cat(out, dim=1)
+
+
+def fire_block_padded_plain(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    t_window: int,
+    w_max: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the CUDA batched fire (same arguments)."""
+    ops = operands[:, :, None]
+    wi = torch.round(torch.clamp(w, 0.0, float(w_max)))
+    return _fire_designs(wi, xs, ops[:, 0:1], ops[:, 1:2], ops[:, 2:3],
+                         t_window, "rnl")
+
+
+def fire_block_padded(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    t_window: int,
+    w_max: int,
+) -> torch.Tensor:
+    """Frozen-weight fire of N volleys for D designs on the integer grid:
+    the wrapper of ``csrc/fire_block.cu``.
+
+    Args:
+      w: [D, p, q] f32 weights (rounded to the grid inside).
+      xs: [D, N, p] f32 volleys; a time >= the design's t_max is silent.
+      operands: [D, N_OPERANDS] f32 (threshold, t_max, q_active used).
+
+    Returns t_fire [D, N, q] f32, clamped to t_max, neurons at or past
+    q_active at t_max.  CPU tensors take ``fire_block_padded_plain``;
+    CUDA tensors launch the kernel (or raise).
+    """
+    tensors = (w, xs, operands)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fire_block_padded_plain(w, xs, operands, t_window=t_window,
+                                       w_max=w_max)
+    _check_cuda_operands("fire_block_padded", tensors)
+    if w.dim() != 3 or xs.dim() != 3:
+        raise ValueError(
+            f"fire_block_padded needs w [D, p, q] and xs [D, N, p], got "
+            f"{tuple(w.shape)} and {tuple(xs.shape)}"
+        )
+    d, p, q = w.shape
+    n = xs.shape[1]
+    if (xs.shape[0], xs.shape[2]) != (d, p) or tuple(operands.shape) != (
+        d, N_OPERANDS
+    ):
+        raise ValueError(
+            f"fire_block_padded: w {tuple(w.shape)} needs xs {(d, n, p)} "
+            f"and operands {(d, N_OPERANDS)}, got {tuple(xs.shape)} and "
+            f"{tuple(operands.shape)}"
+        )
+    k = build.FIRE_BLOCK
+    k.check_smem(f"a {p} x {q} envelope", p, q)
+    t_fire = torch.empty((d, n, q), dtype=torch.float32, device=w.device)
+    if d == 0 or n == 0:
+        return t_fire
+    fn = k.function()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        k.launches += 1
+        rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(),
+                t_fire.data_ptr(), d, n, p, q, int(t_window), int(w_max),
+                stream)
+    build.check_launch(k, rc)
+    return t_fire
+
+
+def _ids_from_times(
+    t_fire: torch.Tensor, t_maxes: torch.Tensor, q_actives: torch.Tensor
+) -> torch.Tensor:
+    """Firing times [D, N, q] -> cluster ids [D, N]: the earliest-firing
+    neuron (the first index among ties, as ``torch.argmin`` returns it),
+    or the design's q_active when no neuron fires."""
+    tm = t_maxes.to(torch.float32)[:, None, None]
+    tf = t_fire.to(torch.float32)
+    spiked = (tf < tm).any(dim=-1)
+    idx = torch.argmin(tf, dim=-1)
+    return torch.where(spiked, idx, q_actives.to(idx.dtype)[:, None]).to(
+        TIME_DTYPE
+    )
+
+
+def assign_padded(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    thresholds,
+    t_maxes,
+    q_actives,
+    *,
+    t_window: int,
+    response: str,
+    lowering: str = "reference",
+    w_max: Optional[int] = None,
+) -> torch.Tensor:
+    """Cluster ids for every padded design: [N, D, p] volleys -> [D, N].
+
+    No volley depends on another, so the whole stream is fired at once.
+    ``'cuda'`` fires the integer weight grid with ``fire_block_padded``
+    (one launch; ``w_max`` required, and only a pure lowering choice when
+    the weights are on the grid, see ``backend.assign_lowering``);
+    ``'reference'`` fires the float weights, in chunks of volleys sized
+    to bound memory (the JAX package's ``v_blk`` blocks; no result
+    depends on either).
+    The id is the winner index, or q_active for a silent volley; k-WTA
+    keeps the global minimum for any k, so no ``wta_k`` is needed.
+    """
+    if lowering not in LOWERINGS:
+        raise ValueError(f"unknown lowering: {lowering!r}")
+    if xs.shape[0] == 0:
+        raise ValueError(
+            "assign_padded needs at least one volley (got an empty "
+            "stream, N=0)"
+        )
+    if response not in fire_responses(lowering):
+        raise ValueError(
+            f"the padded {lowering} lowering supports response "
+            f"{fire_responses(lowering)}, got {response!r}; use "
+            "lowering='reference'"
+        )
+    dev = w.device
+    tm = torch.as_tensor(_floats(t_maxes), dtype=torch.float32, device=dev)
+    qa = torch.as_tensor(_floats(q_actives), dtype=torch.float32, device=dev)
+    xs_d = xs.to(device=dev, dtype=torch.float32).transpose(0, 1).contiguous()
+    w = w.to(torch.float32).contiguous()
+    if lowering == "cuda":
+        if w_max is None:
+            raise ValueError(
+                "the kernel assign lowering needs w_max (integer-grid fire)"
+            )
+        operands = design_operands(
+            _floats(thresholds), _floats(t_maxes), _floats(q_actives),
+            0.0, 0.0, 0.0, device=dev,
+        )
+        t_fire = fire_block_padded(w, xs_d, operands, t_window=t_window,
+                                   w_max=w_max)
+    else:
+        thr = torch.as_tensor(_floats(thresholds), dtype=torch.float32,
+                              device=dev)
+        t_fire = _fire_designs(w, xs_d, thr[:, None, None], tm[:, None, None],
+                               qa[:, None, None], t_window, response)
+    return _ids_from_times(t_fire, tm, qa)

@@ -6,6 +6,7 @@ comparisons are equality; the STDP update is float.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import TIME_DTYPE
@@ -69,23 +70,33 @@ def stdp_ref(
     w_max: int,
     t_max,
     stabilize: bool = True,
+    compiled: bool = False,
 ) -> torch.Tensor:
     """Expected-mode STDP update oracle for one volley.
 
     w: [..., p, q]; x_times: [..., p]; y_times: [..., q]; the mus and
     ``t_max`` are Python numbers or tensors broadcast against ``[..., 1, 1]``.
-    The stabilizer divides by ``w_max``, as the JAX package's reference
-    lowering does (its TPU kernel multiplied by the reciprocal, which can
-    differ by an ulp).
+    The stabilizer divides by ``w_max`` as the JAX package's source does.
+    ``compiled=True`` computes it as XLA compiles that source under ``jit``
+    (the JAX package's fused lowerings, reference and interpreted kernels
+    alike): ``frac = w * f32(1 / w_max)`` and ``s_plus = f32(1 + eps) -
+    frac``, which can differ from the source's form by an ulp.  The port's
+    fused lowerings and CUDA kernels use the compiled form.
     """
     x = x_times[..., :, None]
     y = y_times[..., None, :]
     xs = x < t_max
     ys = y < t_max
     if stabilize:
-        frac = torch.clamp(w / w_max, 0.0, 1.0)
         eps = 1.0 / (2 * w_max)
-        s_plus, s_minus = (1.0 - frac) + eps, frac + eps
+        if compiled:
+            inv = float(np.float32(1.0) / np.float32(w_max))
+            frac = torch.clamp(w * inv, 0.0, 1.0)
+            s_plus = float(np.float32(1.0) + np.float32(eps)) - frac
+        else:
+            frac = torch.clamp(w / w_max, 0.0, 1.0)
+            s_plus = (1.0 - frac) + eps
+        s_minus = frac + eps
     else:
         s_plus = s_minus = torch.ones_like(w)
     capture = xs & ys & (x <= y)

@@ -73,12 +73,7 @@ def rnl_fire(
     q = w.shape[1]
     ti = t_in.to(torch.float32).contiguous()
     k = build.RNL_FIRE
-    smem = k.smem_bytes(p, q)
-    if smem > build.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"rnl_fire: a {p} x {q} column needs {smem} B of shared memory "
-            f"(at most {build.MAX_SMEM_BYTES})"
-        )
+    k.check_smem(f"a {p} x {q} column", p, q)
     out = torch.empty((b, q), dtype=TIME_DTYPE, device=w.device)
     if b == 0 or q == 0:
         return out

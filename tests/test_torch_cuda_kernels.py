@@ -122,3 +122,135 @@ def test_wrappers_refuse_bad_operands(cuda_device):
     with pytest.raises(ValueError):
         rnl_response.rnl_fire(t, w[0].double(), 1.0, 8, 7)
     rnl_response.rnl_fire(t, w[0], 1.0, 8, 7)  # the same call, well formed
+
+
+def _block_case(d, p, q, v_blk, seed, t_window=64):
+    """Heterogeneous envelopes (q_active < q, t_max < t_window) with a
+    block of volleys; weights on the half-integer grid plus off-grid
+    jitter, as training leaves them."""
+    rng = np.random.default_rng(seed)
+    w = _half_grid_weights(rng, (d, p, q))
+    w = np.clip(w + rng.uniform(0, 0.01, w.shape).astype(np.float32)
+                * (rng.random(w.shape) < 0.3), 0, 7)
+    t_in = rng.integers(0, t_window + 8, (d, v_blk, p)).astype(np.float32)
+    thr = rng.uniform(0.1, 0.4, d) * p * 3.5
+    t_maxes = rng.integers(t_window // 2, t_window + 1, d)
+    q_act = rng.integers(max(1, q // 2), q + 1, d)
+    if d > 1:
+        q_act[0], t_maxes[-1] = q, t_window
+    ops = fused_column.design_operands(
+        thr, t_maxes, q_act, rng.choice([0.5, 1.0], d), rng.choice([0.5, 1.0], d),
+        rng.choice([1 / 1024, 0.5], d))
+    return torch.from_numpy(w), torch.from_numpy(t_in), ops
+
+
+BLOCK_CASES = [
+    # (d, p, q, v_blk, n_valid, wta_k, stabilize)
+    (1, 270, 50, 32, 32, 1, True),
+    (4, 270, 50, 32, 5, 2, True),    # a tail: n_valid < v_blk
+    (4, 270, 25, 7, 7, 1, False),
+    (4, 637, 2, 7, 3, 2, False),
+    (1, 65, 40, 1, 1, 1, True),      # q wider than a warp
+]
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: "d{}_{}x{}_v{}_n{}_k{}_s{}".format(*c[:6], int(c[6])))
+def test_fused_block_kernel_matches_plain(cuda_device, case):
+    d, p, q, v_blk, n_valid, k, stab = case
+    w, t_in, ops = _block_case(d, p, q, v_blk, seed=p + q + v_blk + d)
+    kw = dict(t_window=64, w_max=7, wta_k=k, stabilize=stab)
+    ref = fused_column.fused_block_padded_plain(w, t_in, ops, n_valid, **kw)
+    before = build.FUSED_BLOCK.launches
+    got = fused_column.fused_block_padded(
+        w.to(cuda_device), t_in.to(cuda_device), ops.to(cuda_device), n_valid, **kw)
+    torch.cuda.synchronize()
+    assert build.FUSED_BLOCK.launches == before + 1
+    assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+
+def test_fused_block_kernel_masks_the_tail_of_a_degenerate_design(cuda_device):
+    w, t_in, _ = _block_case(2, 40, 6, 4, seed=3, t_window=16)
+    t_in[:, 2:] = 16.0  # a silent tail, which threshold 0 would still fire
+    ops = fused_column.design_operands([0.0, 0.0], [16, 12], [6, 4], 1.0, 1.0, 1.0)
+    kw = dict(t_window=16, w_max=7, wta_k=1, stabilize=False)
+    ref = fused_column.fused_block_padded_plain(w, t_in, ops, 2, **kw)
+    got = fused_column.fused_block_padded(
+        w.to(cuda_device), t_in.to(cuda_device), ops.to(cuda_device), 2, **kw)
+    assert torch.equal(got.cpu(), ref)
+    assert not torch.equal(
+        ref, fused_column.fused_block_padded_plain(w, t_in, ops, 4, **kw))
+
+
+@pytest.mark.parametrize("n,p,q", [(905, 270, 50), (905, 637, 2), (13, 65, 40)])
+def test_fire_block_kernel_matches_plain(cuda_device, n, p, q):
+    d = 4
+    rng = np.random.default_rng(n + p)
+    w = torch.from_numpy(_half_grid_weights(rng, (d, p, q)))
+    xs = torch.from_numpy(rng.integers(0, 72, (d, n, p)).astype(np.float32))
+    ops = fused_column.design_operands(
+        rng.uniform(0.1, 0.4, d) * p * 3.5, [64, 40, 33, 64], [q, max(1, q - 3), 1, q],
+        0.0, 0.0, 0.0)
+    ref = fused_column.fire_block_padded_plain(w, xs, ops, t_window=64, w_max=7)
+    before = build.FIRE_BLOCK.launches
+    got = fused_column.fire_block_padded(
+        w.to(cuda_device), xs.to(cuda_device), ops.to(cuda_device), t_window=64, w_max=7)
+    torch.cuda.synchronize()
+    assert build.FIRE_BLOCK.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+    tm = ops[:, 1].to(cuda_device)
+    qa = ops[:, 2].to(cuda_device)
+    assert torch.equal(fused_column._ids_from_times(got, tm, qa).cpu(),
+                       fused_column._ids_from_times(ref, ops[:, 1], ops[:, 2]))
+
+
+def test_padded_fit_and_assign_on_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(21)
+    d, p, q, n = 3, 30, 6, 41
+    w = rng.integers(0, 8, (d, p, q)).astype(np.float32)
+    xs = rng.integers(0, 36, (n, d, p)).astype(np.int32)
+    th, tm, qa = [12.0, 20.0, 8.0], [32, 24, 20], [6, 4, 3]
+    args = dict(t_window=32, w_max=7, wta_k=1, mu_capture=1.0, mu_backoff=1.0,
+                mu_search=1.0, stabilize=False, response="rnl", epochs=2)
+    cpu = fused_column.fit_scan_padded(torch.from_numpy(w), torch.from_numpy(xs),
+                                       th, tm, qa, lowering="reference", v_blk=8,
+                                       **args)
+    card = fused_column.fit_scan_padded(
+        torch.from_numpy(w).to(cuda_device), torch.from_numpy(xs).to(cuda_device),
+        th, tm, qa, lowering="cuda", v_blk=32, **args)
+    assert torch.equal(card.cpu(), cpu)
+    assert backend.assign_lowering("rnl", card) == "cuda"
+    kw = dict(t_window=32, response="rnl", w_max=7)
+    before = build.FIRE_BLOCK.launches
+    ids = fused_column.assign_padded(card, torch.from_numpy(xs).to(cuda_device),
+                                     th, tm, qa, lowering="cuda", **kw)
+    assert build.FIRE_BLOCK.launches == before + 1
+    assert torch.equal(ids.cpu(), fused_column.assign_padded(
+        cpu, torch.from_numpy(xs), th, tm, qa, lowering="reference", **kw))
+
+
+def test_block_wrappers_refuse_bad_operands(cuda_device):
+    w = torch.zeros((1, 8, 2), device=cuda_device)
+    t = torch.zeros((1, 4, 8), device=cuda_device)
+    ops = fused_column.design_operands([1.0], [8], [2], 0.5, 0.5, 0.5).to(cuda_device)
+    kw = dict(t_window=8, w_max=7, wta_k=1, stabilize=True)
+    with pytest.raises(ValueError):
+        fused_column.fused_block_padded(w.double(), t, ops, 4, **kw)
+    with pytest.raises(ValueError):
+        fused_column.fused_block_padded(w, t.cpu(), ops, 4, **kw)
+    with pytest.raises(ValueError):
+        fused_column.fused_block_padded(w, t[:, :, :7], ops, 4, **kw)
+    with pytest.raises(ValueError):  # 227 KB of shared memory is the limit
+        fused_column.fused_block_padded(
+            torch.zeros((1, 600, 48), device=cuda_device),
+            torch.zeros((1, 4, 600), device=cuda_device), ops, 4, **kw)
+    fused_column.fused_block_padded(w, t, ops, 4, **kw)  # well formed
+    fkw = dict(t_window=8, w_max=7)
+    with pytest.raises(ValueError):
+        fused_column.fire_block_padded(w, t.transpose(1, 2), ops, **fkw)
+    with pytest.raises(ValueError):
+        fused_column.fire_block_padded(w, t.to(torch.int32), ops, **fkw)
+    with pytest.raises(ValueError):
+        fused_column.fire_block_padded(
+            torch.zeros((1, 300, 200), device=cuda_device),
+            torch.zeros((1, 4, 300), device=cuda_device), ops, **fkw)
+    fused_column.fire_block_padded(w, t, ops, **fkw)
