@@ -7,7 +7,7 @@ Runs from the root of a checkout on a host with one NVIDIA H100 (sm_90)
 and the CUDA toolkit.  Imports the port (``src/repro_torch``) only, never
 JAX or the JAX package.  Phases, each of which asserts:
 
-1. build: all four CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
 2. the fused-step kernel against its plain PyTorch version (D = 1 at
    WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1 and 2;
@@ -16,31 +16,54 @@ JAX or the JAX package.  Phases, each of which asserts:
    B = 121 at 637 x 2): equal;
 4. the volley-block kernel against its plain version (D = 1 and D = 4
    heterogeneous envelopes, v_blk 1, 7 and 32 with tails, wta_k 1 and 2,
-   stabilizer on and off, a threshold-0 design with a tail): weights
-   bit-equal;
+   stabilizer on and off, a threshold-0 design with a tail; and a D = 12
+   block of the on/off 540 x 50 envelope at v_blk 32, which the wrapper
+   folds as sub-launches of the 7 volleys that fit in shared memory):
+   weights bit-equal, sub-launches as computed;
 5. the batched-fire kernel against its plain version (D = 4
    heterogeneous, N = 905 at 270 x 50 and 637 x 2): times and ids equal;
-   once phase 7 has run, again on the very inputs of each of the
+   once phase 8 has run, again on the very inputs of each of the
    integer-grid sweep's launches (each bucket's trained weights and
    volleys);
-6. the single-column path: ``simulator.cluster_time_series`` on all
+6. the STDP-update kernel against its plain version (13 x 3, 270 x 25,
+   650 x 130, 7 x 1 and 540 x 50; stabilizer on and off; int32 and f32
+   times with silent entries; weights outside [0, 7] and at x.5): equal;
+7. the single-column path: ``simulator.cluster_time_series`` on all
    seven Table II designs, full synthetic doubles, 8 epochs, under
    mode='auto' and mode='pallas', with launch counters read around it;
    WordSynonyms and Lightning2 again on the CPU from the same initial
    weights, which must give the same assignments and Rand index;
-7. the sweep path, launch counters read around it: two 12-design
+8. the sweep path, launch counters read around it: two 12-design
    ``simulator.cluster_time_series_many`` sweeps over WordSynonyms (full
    width and N, 8 epochs; default STDP, then integer-grid STDP in buckets
    of 8), ``simulator.assign_time_series`` on one integer-grid design,
    and a two-layer ``simulator.cluster_time_series_network``;
-8. the sweep path on the CPU from the same initial weights (two designs
+9. the sweep path on the CPU from the same initial weights (two designs
    of each sweep, and the network): equal assignments, Rand index and
    weights;
-9. timing at the paths' shapes with CUDA events, beside each kernel's
-   bound on the card: the volley-block kernel on the default sweep's
-   first launch (D = 12 at 270 x 50, v_blk = 32), the batched fire on
-   each of the integer-grid sweep's launches (the kernels line sums
-   them).
+10. the ``ops`` path, launch counters read around it: WordSynonyms
+    (270 x 25, all 900 volleys, default STDP, one epoch) through the
+    unfused loop ``ops.column_forward`` -> ``ops.stdp_step`` (RNL fire and
+    STDP update, one launch each per volley) and through
+    ``ops.train_volleys`` (one fused step per volley): weights bit-equal
+    to each other and to ``train_volleys`` on the CPU;
+11. the DSE path, launch counters read around it: ``dse.explore`` over
+    the full WordSynonyms stream, 24 candidates (q 25/50 x t_max 32/64 x
+    three threshold scales x latency/on-off encoders), 4 epochs: nothing
+    quarantined or retried, every point on 'cuda', the volley-block
+    launches as computed; again with a journal cut after its first
+    bucket and resumed: bit-identical; and one candidate of each encoder
+    (the on/off one at 540 x 50) on the CPU from the same initial
+    weights: equal ids, Rand index and weights;
+12. the hardware generator (host only): the chosen design through
+    ``hwgen.run_flow`` to TNN7 post-layout metrics, and the seven
+    Table II ``hardware_spec`` flows;
+13. timing at the paths' shapes with CUDA events, beside each kernel's
+    bound on the card: the volley-block kernel on the default sweep's
+    first launch (D = 12 at 270 x 50, v_blk = 32), the batched fire on
+    each of the integer-grid sweep's launches (the kernels line sums
+    them), the STDP update on the ops path's first volley and at the
+    phase 6 shapes.
 
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -49,9 +72,11 @@ rest of the repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -61,7 +86,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 EPOCHS = 8
+DSE_EPOCHS = 4
 CPU_CHECKED = ("WordSynonyms", "Lightning2")
+STDP_SHAPES = ((13, 3), (270, 25), (650, 130), (7, 1), (540, 50))
+# candidates checked on the CPU: q 50, t_max 64, threshold scale 1.0,
+# latency (270 x 50) and on/off (540 x 50)
+DSE_CPU_CHECKED = (10, 22)
 
 
 def log(*a):
@@ -343,6 +373,88 @@ def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int]:
     return n_bytes, n_ops
 
 
+def check_block_split(fused_column, build, dev) -> float:
+    """Phase 4, last case: a D = 12 block of the on/off 540 x 50 envelope
+    at v_blk 32 (285 KB of shared memory at one launch) folds as
+    sub-launches of the volleys that fit; bit-equal to the plain fold of
+    the whole block.  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    d, p, q, v_blk, n_valid = 12, 540, 50, 32, 30
+    rng = np.random.default_rng(540)
+    w = torch.from_numpy(half_grid(rng, (d, p, q)))
+    t_in = torch.from_numpy(rng.integers(0, 72, (d, v_blk, p)).astype(np.float32))
+    ops = fused_column.design_operands(
+        rng.uniform(0.1, 0.4, d) * p * 3.5, rng.integers(32, 65, d),
+        rng.integers(25, q + 1, d), 0.5, 0.5, 1 / 1024)
+    kw = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
+    plan = fused_column.block_sub_launches(p, q, v_blk, n_valid)
+    one = build.FUSED_BLOCK.smem_bytes(p, q, v_blk)
+    ref = fused_column.fused_block_padded_plain(w, t_in, ops, n_valid, **kw)
+    before = build.FUSED_BLOCK.launches
+    got = fused_column.fused_block_padded(
+        w.to(dev), t_in.to(dev), ops.to(dev), n_valid, **kw).cpu()
+    launched = build.FUSED_BLOCK.launches - before
+    dw = float((got - ref).abs().max())
+    log(f"[fused_block] split D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid}: "
+        f"{one} B at one launch > {build.MAX_SMEM_BYTES}; sub-launches "
+        f"{[v for _, v, _ in plan]} launched={launched} max|dw|={dw}")
+    assert one > build.MAX_SMEM_BYTES
+    assert launched == len(plan) == 5, (launched, plan)
+    assert torch.equal(got, ref), "fused_block: the split block differs"
+    return dw
+
+
+def stdp_inputs(p, q, dtype, seed):
+    """Weights from uniform(0, 7), a few outside [0, 7] and at x.5; times
+    of ``dtype`` with silent entries (>= t_max 64) on both axes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0, 7, (p, q)).astype(np.float32)
+    extra = np.array([-0.5, 7.5, 3.5, 0.5, 9.0, 6.5], np.float32)
+    w.flat[: min(w.size, extra.size)] = extra[: w.size]
+    x = torch.from_numpy(rng.integers(0, 72, p)).to(dtype)
+    y = torch.from_numpy(rng.integers(0, 72, q)).to(dtype)
+    x[0], y[-1] = 64, 70
+    return torch.from_numpy(w), x, y
+
+
+def check_stdp_update(stdp_update, dev) -> float:
+    """Phase 6: the STDP-update kernel against its plain version; returns
+    the largest difference."""
+    import torch
+
+    worst = 0.0
+    for p, q in STDP_SHAPES:
+        for stab in (True, False):
+            for dtype in (torch.int32, torch.float32):
+                w, x, y = stdp_inputs(p, q, dtype, seed=p * 7 + q)
+                args = (0.5, 0.5, 1 / 1024, 7, 64, stab)
+                ref = stdp_update.stdp_update_plain(w, x, y, *args)
+                got = stdp_update.stdp_update(
+                    w.to(dev), x.to(dev), y.to(dev), *args).cpu()
+                dw = float((got - ref).abs().max())
+                worst = max(worst, dw)
+                log(f"[stdp_update] {p}x{q} stabilize={stab} times={dtype} "
+                    f"max|dw|={dw}")
+                assert torch.equal(got, ref), "stdp_update: weights differ"
+    return worst
+
+
+def stdp_bound(p: int, q: int) -> tuple[int, int]:
+    """Bytes and operations of one STDP update: weights read and written
+    once, the two time vectors read once (4 B each); ~10 operations per
+    synapse (compares, selects, the stabilizer's products, the clamp)."""
+    return 8 * p * q + 4 * p + 4 * q, 10 * p * q
+
+
+def n_valid_per_block(n: int, v_blk: int) -> list:
+    return [min(v_blk, n - v_blk * i) for i in range(-(-n // v_blk))]
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -357,13 +469,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.configs.tnn_columns import all_benchmarks, column_config
+    from repro_torch import dse
+    from repro_torch.configs.tnn_columns import (
+        all_benchmarks, column_config, hardware_spec,
+    )
     from repro_torch.core import column, network, simulator
     from repro_torch.core.types import (
         ColumnConfig, LayerConfig, NetworkConfig, STDPConfig,
     )
     from repro_torch.data import ucr
-    from repro_torch.kernels import build, fused_column, rnl_response
+    from repro_torch.hwgen import run_flow
+    from repro_torch.hwgen.rtl import ColumnSpec
+    from repro_torch.kernels import build, fused_column, rnl_response, stdp_update
+    from repro_torch.kernels import ops as kops
 
     dev = torch.device("cuda")
     card = card_line()
@@ -434,10 +552,14 @@ def main() -> int:
         assert torch.equal(got.cpu(), ref), "rnl_fire: firing times differ"
 
     # 4, 5 — the padded kernels against their plain versions
-    err["fused_block"] = check_fused_block(fused_column, dev)
+    err["fused_block"] = max(check_fused_block(fused_column, dev),
+                             check_block_split(fused_column, build, dev))
     err["fire_block"] = check_fire_block(fused_column, dev)
 
-    # 6 — the single-column path, launch counters reset just before it
+    # 6 — the STDP update against its plain version
+    err["stdp_update"] = check_stdp_update(stdp_update, dev)
+
+    # 7 — the single-column path, launch counters reset just before it
     designs = {}
     for name in all_benchmarks():
         cfg = column_config(name)
@@ -501,7 +623,7 @@ def main() -> int:
             assert same, f"{name} {mode}: card and CPU assignments differ"
             assert cpu.rand_index == gpu.rand_index
 
-    # 7 — the sweep path, launch counters reset just before it
+    # 8 — the sweep path, launch counters reset just before it
     ws = designs["WordSynonyms"][1]
     n_ws = ws.x.shape[0]
     blocks = -(-n_ws // 32)
@@ -587,7 +709,7 @@ def main() -> int:
     err["fire_block"] = max(err["fire_block"],
                             check_path_fire_calls(fused_column, fire_calls))
 
-    # 8 — the sweep path on the CPU from the same initial weights; a
+    # 9 — the sweep path on the CPU from the same initial weights; a
     # 2-design sweep is a valid comparison, since no result depends on
     # the bucket a design rides in
     for name, (cfgs, w_init, res) in sweeps.items():
@@ -614,7 +736,157 @@ def main() -> int:
         f"{cpu_net.rand_index!r} card={net_res.rand_index!r} weights equal={same_w}")
     assert same_a and same_w and cpu_net.rand_index == net_res.rand_index
 
-    # 9 — timing at the paths' shapes
+    # 10 — the ops path at full width, launch counters reset just before
+    # it: WordSynonyms 270 x 25, all volleys, default STDP, one epoch
+    cfg_ws, _, w0_ws = designs["WordSynonyms"]
+    vol_ws = simulator._encode(
+        torch.as_tensor(ws.x, dtype=torch.float32, device=dev), cfg_ws, "latency")
+    w_start = w0_ws["w"].to(dev)
+    stdp_path_inputs = None  # the first volley's STDP-update operands
+    for k in build.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_loop = w_start
+    for i in range(n_ws):
+        y = kops.column_forward({"w": w_loop}, vol_ws[i : i + 1], cfg_ws)
+        if stdp_path_inputs is None:
+            stdp_path_inputs = (w_loop.clone(), vol_ws[i].clone(), y[0].clone())
+        w_loop = kops.stdp_step(w_loop, vol_ws[i], y[0], cfg_ws)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_fused = kops.train_volleys({"w": w_start}, vol_ws, cfg_ws)["w"]
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    ops_launches = {k.name: k.launches for k in build.KERNELS}
+    w_cpu = kops.train_volleys({"w": w_start.cpu()}, vol_ws.cpu(), cfg_ws)["w"]
+    log(f"[ops] WordSynonyms 270x25 N={n_ws} 1 epoch: unfused loop "
+        f"(column_forward -> stdp_step) seconds={loop_s!r}, train_volleys "
+        f"seconds={fused_s!r}; launches={ops_launches}; loop == fused "
+        f"{torch.equal(w_loop, w_fused)}; fused == CPU "
+        f"{torch.equal(w_fused.cpu(), w_cpu)} | {card}")
+    assert ops_launches == {"fused_step": n_ws, "rnl_fire": n_ws,
+                            "fused_block": 0, "fire_block": 0,
+                            "stdp_update": n_ws}, ops_launches
+    assert torch.equal(w_loop, w_fused), "ops: unfused loop and train_volleys differ"
+    assert torch.equal(w_fused.cpu(), w_cpu), "ops: card and CPU differ"
+    assert not torch.equal(w_fused, w_start)
+
+    # 11 — the DSE path at full width, launch counters reset just before it
+    space = dse.DesignSpace(q=(25, 50), t_max=(32, 64),
+                            threshold_scale=(0.75, 1.0, 1.25),
+                            encoder=("latency", "onoff"))
+    for k in build.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res_dse = dse.explore(ws.x, ws.y, space, epochs=DSE_EPOCHS, device="cuda")
+    dse_s = time.perf_counter() - t0
+    dse_launches = {k.name: k.launches for k in build.KERNELS}
+    per_epoch = {
+        enc: sum(len(fused_column.block_sub_launches(p_env, 50, 32, nv))
+                 for nv in n_valid_per_block(n_ws, 32))
+        for enc, p_env in (("latency", 270), ("onoff", 540))
+    }
+    log(f"[dse] WordSynonyms N={n_ws} {len(res_dse.points)} points, "
+        f"{DSE_EPOCHS} epochs: seconds={dse_s!r} meta seconds="
+        f"{res_dse.seconds!r} buckets={res_dse.meta['buckets']} lowering="
+        f"{res_dse.meta['lowering']} quarantined={res_dse.meta['quarantined']} "
+        f"retries={res_dse.meta['retries']} launches={dse_launches} "
+        f"volley-block launches per epoch={per_epoch} | {card}")
+    log(dse.summarize(res_dse))
+    assert res_dse.meta["quarantined"] == 0, res_dse.meta["failures"]
+    assert res_dse.meta["retries"] == 0
+    assert len(res_dse.points) == space.size() == 24
+    assert res_dse.meta["buckets"] == {"latency": 1, "onoff": 1}
+    for pt in res_dse.points:
+        assert pt.lowering == "cuda" and pt.retries == 0, (pt.index, pt.lowering)
+        assert pt.plan["v_blk"] == 32, pt.plan
+        assert 0.0 <= pt.rand_index <= 1.0
+        assert np.all(np.isfinite(pt.params["w"]))
+    assert dse_launches["fused_block"] == DSE_EPOCHS * sum(per_epoch.values())
+    assert dse_launches["fused_step"] == dse_launches["rnl_fire"] == 0
+    assert dse_launches["stdp_update"] == 0
+
+    class CountingJournal(dse.Journal):
+        """Remembers how many records each bucket appended."""
+
+        def __init__(self, path):
+            super().__init__(path)
+            self.sizes = []
+
+        def append(self, records):
+            self.sizes.append(len(records))
+            super().append(records)
+
+    def same_run(a, b) -> bool:
+        return (
+            [p.index for p in a.points] == [p.index for p in b.points]
+            and all(p.rand_index == r.rand_index
+                    and np.array_equal(p.params["w"], r.params["w"])
+                    for p, r in zip(a.points, b.points))
+            and [p.index for p in a.pareto] == [p.index for p in b.pareto])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jr = CountingJournal(os.path.join(tmp, "dse.jsonl"))
+        res_j = dse.explore(ws.x, ws.y, space, epochs=DSE_EPOCHS, journal=jr,
+                            device="cuda")
+        with open(jr.path) as f:
+            lines = f.read().splitlines()
+        cut = os.path.join(tmp, "killed.jsonl")  # a kill after bucket one
+        with open(cut, "w") as f:
+            f.write("\n".join(lines[: 1 + jr.sizes[0]]) + "\n")
+        before = build.FUSED_BLOCK.launches
+        res_r = dse.explore(ws.x, ws.y, space, epochs=DSE_EPOCHS, journal=cut,
+                            resume=True, device="cuda")
+        resumed_launches = build.FUSED_BLOCK.launches - before
+    log(f"[dse] journal: bucket records {jr.sizes}; resumed "
+        f"{res_r.meta['resumed']} of {len(res_r.points)}, volley-block launches "
+        f"on resume {resumed_launches}; journaled run == run "
+        f"{same_run(res_j, res_dse)}; resumed run == run {same_run(res_r, res_dse)}")
+    assert res_r.meta["resumed"] == jr.sizes[0] == 12
+    assert resumed_launches == DSE_EPOCHS * per_epoch["onoff"]
+    assert same_run(res_j, res_dse) and same_run(res_r, res_dse)
+
+    for i in DSE_CPU_CHECKED:
+        pt = res_dse.points[i]
+        t0 = time.perf_counter()
+        cpu = simulator.cluster_time_series_many(
+            ws.x, ws.y, [pt.cfg], epochs=DSE_EPOCHS, encoder=pt.encoder,
+            w_init=[dse.initial_weights(0, i, pt.cfg)], device="cpu")[0]
+        ids = simulator.assign_time_series(ws.x, pt.cfg, pt.params,
+                                           encoder=pt.encoder, device="cuda")
+        same_a = bool(np.array_equal(cpu.assignments, ids))
+        same_w = bool(np.array_equal(cpu.params["w"].numpy(), pt.params["w"]))
+        log(f"[cpu-check] dse candidate {i} ({pt.encoder} {pt.cfg.p}x{pt.cfg.q} "
+            f"t_max={pt.cfg.t_max}) equal_ids={same_a} RI cpu="
+            f"{cpu.rand_index!r} card={pt.rand_index!r} weights equal={same_w} "
+            f"cpu_seconds={time.perf_counter() - t0:.1f}")
+        assert cpu.lowering == "reference"
+        assert same_a and same_w and cpu.rand_index == pt.rand_index, i
+
+    # 12 — the hardware generator on the chosen design (host only)
+    bp = res_dse.best()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = ColumnSpec(name="wordsynonyms_nspu", p=bp.cfg.p, q=bp.cfg.q,
+                          theta=int(bp.cfg.p * 7 // 8), t_max=bp.cfg.t_max)
+        fr = run_flow(spec, "tnn7", build_root=tmp)
+        written = sorted(os.listdir(fr.build_dir))
+        log(f"[hwgen] best design {bp.index} ({bp.encoder} {bp.cfg.p}x{bp.cfg.q} "
+            f"t_max={bp.cfg.t_max}, RI {bp.rand_index!r}): post-layout "
+            f"{fr.area_um2!r} um^2, {fr.leakage_uw!r} uW, forecast "
+            f"{bp.area_um2!r} um^2, error "
+            f"{100 * (bp.area_um2 - fr.area_um2) / fr.area_um2:+.2f}%; "
+            f"files {written}")
+        assert f"tnn_column_{spec.name}.v" in written and "synth_tnn7.tcl" in written
+        assert fr.synapses == bp.synapses and fr.area_um2 > 0
+        for name in all_benchmarks():
+            fr = run_flow(hardware_spec(name), "tnn7", build_root=tmp)
+            log(f"[hwgen] {name} {fr.synapses} synapses: {fr.area_um2!r} um^2 "
+                f"{fr.leakage_uw!r} uW latency {fr.latency_ns!r} ns")
+            assert fr.area_um2 > 0 and fr.leakage_uw > 0
+
+    # 13 — timing at the paths' shapes
     timer = Timer(torch)
     rows = {}
     for name, (cfg, ds, _) in designs.items():
@@ -703,10 +975,35 @@ def main() -> int:
         f"plain_ms={fire_sum[1]!r} bound_ms={fire_sum[2]!r} "
         f"({rows['sweep']['fire'][3]}) | {card}")
 
-    # 10 — the kernels line; launches from each kernel's own path
+    # the STDP update: the ops path's first volley (270 x 25), then the
+    # phase 6 shapes on their own inputs
+    c_stdp = cfg_ws.stdp
+    stdp_args = (c_stdp.mu_capture, c_stdp.mu_backoff, c_stdp.mu_search,
+                 cfg_ws.neuron.w_max, cfg_ws.t_max, c_stdp.stabilizer == "half")
+    # the path's times are int32, which the wrapper casts to f32 (two
+    # small copies); f32 times alone show the kernel without them
+    w0s, x0s, y0s = stdp_path_inputs
+    stdp_cases = [("ops path volley 0", w0s, x0s, y0s),
+                  ("ops path volley 0, f32 times", w0s, x0s.float(), y0s.float())]
+    for p, q in STDP_SHAPES:
+        w, x, y = stdp_inputs(p, q, torch.int32, seed=p * 7 + q)
+        stdp_cases.append(("", w.to(dev), x.to(dev), y.to(dev)))
+    for label, w, x, y in stdp_cases:
+        s_ms = timer(lambda: stdp_update.stdp_update(w, x, y, *stdp_args), 400)
+        s_plain = timer(lambda: stdp_update.stdp_update_plain(w, x, y, *stdp_args), 200)
+        p, q = w.shape
+        s_bytes, s_ops = stdp_bound(p, q)
+        s_bound, s_by = bound_ms(s_bytes, s_ops)
+        if label == "ops path volley 0":
+            rows["stdp"] = (s_ms, s_plain, s_bound, s_by, s_bytes, s_ops)
+        log(f"[time] stdp_update {p}x{q} {label} ms={s_ms!r} plain_ms={s_plain!r} "
+            f"bound_ms={s_bound!r} ({s_by}; {s_bytes} B, {s_ops} ops) | {card}")
+
+    # 14 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]
     path_launches = dict(launches, fused_block=sweep_launches["fused_block"],
-                         fire_block=sweep_launches["fire_block"])
+                         fire_block=sweep_launches["fire_block"],
+                         stdp_update=ops_launches["stdp_update"])
     entries = []
     for k, r, shape in (
         (build.FUSED_STEP, wsr["fused"], "D=1 270x25 t_max=64"),
@@ -715,6 +1012,7 @@ def main() -> int:
         (build.FIRE_BLOCK, rows["sweep"]["fire"],
          f"sum of the grid sweep's launches: {' + '.join(shapes)}, "
          f"N={n_ws} t_window=64"),
+        (build.STDP_UPDATE, rows["stdp"], "270x25 t_max=64, the ops path's volley 0"),
     ):
         entries.append({
             "name": k.name, "route": "cuda",

@@ -5,7 +5,15 @@
 #                  block of volleys (csrc/fused_block.cu), and the padded
 #                  sweep's batched assignment fire (csrc/fire_block.cu)
 #   rnl_response — batched RNL firing times (csrc/rnl_fire.cu)
+#   stdp_update  — the expected STDP update of one volley (csrc/stdp_update.cu)
+#   ops          — the public entry points: column_forward, rnl_fire,
+#                  stdp_step, train_volleys
 # ref.py holds the plain oracles; build.py compiles csrc/ with nvcc at
 # first use and binds it with ctypes.  Importing this package builds
 # nothing.
-from repro_torch.kernels import build, fused_column, ops, ref, rnl_response  # noqa: F401
+from repro_torch.kernels import (  # noqa: F401
+    build, fused_column, ops, ref, rnl_response, stdp_update,
+)
+from repro_torch.kernels.ops import (  # noqa: F401
+    column_forward, rnl_fire, stdp_step, train_volleys,
+)

@@ -204,4 +204,12 @@ FIRE_BLOCK = CudaKernel(
     replaces="src/repro/kernels/fused_column.py:1019 _fire_block_kernel",
 )
 
-KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK)
+STDP_UPDATE = CudaKernel(
+    name="stdp_update",
+    source="stdp_update.cu",
+    symbol="tnn_stdp_update",
+    argtypes=(_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P),
+    replaces="src/repro/kernels/stdp_update.py:28 _stdp_kernel",
+)
+
+KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, STDP_UPDATE)

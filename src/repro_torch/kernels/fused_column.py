@@ -467,7 +467,10 @@ def fused_block_padded(
 
     Returns w_new [D, p, q] after the block's sequential online updates.
     CPU tensors take ``fused_block_padded_plain``; CUDA tensors launch the
-    kernel (or raise).
+    kernel (or raise), once per block, or once per sub-block where the
+    block's volleys do not fit in shared memory beside the weights
+    (``block_sub_launches``).  Only an envelope whose single volley does
+    not fit (2pq + p + 2q words over 227 KB, ~29 K synapses) is refused.
     """
     kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
     tensors = (w, t_in, operands)
@@ -492,20 +495,48 @@ def fused_block_padded(
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
     k = build.FUSED_BLOCK
-    k.check_smem(f"a {p} x {q} envelope with v_blk={v_blk}", p, q, v_blk)
-    w_out = torch.empty_like(w)
+    k.check_smem(f"one volley of a {p} x {q} envelope", p, q, 1)
     if d == 0:
-        return w_out
+        return torch.empty_like(w)
     fn = k.function()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        k.launches += 1
-        rc = fn(w.data_ptr(), t_in.data_ptr(), operands.data_ptr(),
-                w_out.data_ptr(), d, p, q, v_blk, int(n_valid),
-                int(t_window), int(w_max), int(wta_k), int(bool(stabilize)),
-                _eps(w_max), stream)
-    build.check_launch(k, rc)
-    return w_out
+    for start, v, nv in block_sub_launches(p, q, v_blk, n_valid):
+        sub = t_in if v == v_blk else t_in[:, start : start + v].contiguous()
+        w_out = torch.empty_like(w)
+        with torch.cuda.device(w.device):
+            stream = torch.cuda.current_stream(w.device).cuda_stream
+            k.launches += 1
+            rc = fn(w.data_ptr(), sub.data_ptr(), operands.data_ptr(),
+                    w_out.data_ptr(), d, p, q, v, nv, int(t_window),
+                    int(w_max), int(wta_k), int(bool(stabilize)),
+                    _eps(w_max), stream)
+        build.check_launch(k, rc)
+        w = w_out
+    return w
+
+
+def block_sub_launches(
+    p: int, q: int, v_blk: int, n_valid: int
+) -> list[tuple[int, int, int]]:
+    """How ``fused_block_padded`` launches one block of ``v_blk`` volleys
+    in a p x q envelope: (first volley, volleys staged, volleys folded)
+    per launch.
+
+    One launch takes the whole block when its volleys fit in a thread
+    block's shared memory beside the weights.  Otherwise the block's
+    first ``n_valid`` volleys fold as consecutive launches of the largest
+    sub-block that fits (the kernel's own ``_smem_bytes`` decides), in
+    order; volleys fold in order either way, so the result is the same
+    function of the inputs.
+    """
+    k = build.FUSED_BLOCK
+    v_fit = v_blk
+    while v_fit > 1 and k.smem_bytes(p, q, v_fit) > build.MAX_SMEM_BYTES:
+        v_fit -= 1
+    if v_fit >= v_blk:
+        return [(0, v_blk, int(n_valid))]
+    n_fold = max(0, min(int(n_valid), v_blk))
+    return [(s, min(v_fit, n_fold - s), min(v_fit, n_fold - s))
+            for s in range(0, n_fold, v_fit)]
 
 
 def fit_scan_padded(

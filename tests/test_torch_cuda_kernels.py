@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core import backend
 from repro_torch.core.types import ColumnConfig, NeuronConfig, STDPConfig
-from repro_torch.kernels import build, fused_column, rnl_response
+from repro_torch.kernels import build, fused_column, ops, rnl_response, stdp_update
 
 pytestmark = pytest.mark.cuda
 
@@ -254,3 +254,84 @@ def test_block_wrappers_refuse_bad_operands(cuda_device):
             torch.zeros((1, 300, 200), device=cuda_device),
             torch.zeros((1, 4, 300), device=cuda_device), ops, **fkw)
     fused_column.fire_block_padded(w, t, ops, **fkw)
+
+
+def test_fused_block_folds_an_oversized_block_as_sub_launches(cuda_device):
+    """The on/off 540 x 50 envelope at v_blk 32 needs 285 KB of shared
+    memory; the wrapper folds the block's valid volleys as consecutive
+    launches of the 7 that fit beside the weights, bit-equal to the plain
+    version's fold of the whole block."""
+    d, p, q, v_blk, n_valid = 12, 540, 50, 32, 30
+    w, t_in, ops_ = _block_case(d, p, q, v_blk, seed=540)
+    kw = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
+    per_volley = 4 * p
+    fixed = (2 * p * q + q) * 4 + 4 * q  # tnn_fused_block_smem_bytes at v_blk 0
+    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk) == fixed + v_blk * per_volley
+    v_fit = (build.MAX_SMEM_BYTES - fixed) // per_volley
+    assert v_fit == 7
+    ref = fused_column.fused_block_padded_plain(w, t_in, ops_, n_valid, **kw)
+    before = build.FUSED_BLOCK.launches
+    got = fused_column.fused_block_padded(
+        w.to(cuda_device), t_in.to(cuda_device), ops_.to(cuda_device), n_valid,
+        **kw)
+    torch.cuda.synchronize()
+    assert build.FUSED_BLOCK.launches == before + -(-n_valid // v_fit) == before + 5
+    assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+
+STDP_SHAPES = [(13, 3), (270, 25), (650, 130), (7, 1), (540, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["int32", "f32"])
+@pytest.mark.parametrize("stabilize", [True, False], ids=["stab", "plain"])
+@pytest.mark.parametrize("p,q", STDP_SHAPES)
+def test_stdp_update_kernel_matches_plain(cuda_device, p, q, stabilize, dtype):
+    rng = np.random.default_rng(p * 7 + q)
+    w = rng.uniform(0, 7, (p, q)).astype(np.float32)
+    extra = np.array([-0.5, 7.5, 3.5, 0.5, 9.0, 6.5], np.float32)
+    w.flat[: min(w.size, extra.size)] = extra[: w.size]
+    w = torch.from_numpy(w)
+    x = torch.from_numpy(rng.integers(0, 22, p)).to(dtype)
+    y = torch.from_numpy(rng.integers(0, 22, q)).to(dtype)
+    args = (0.5, 0.5, 1 / 1024, 7, 16, stabilize)
+    ref = stdp_update.stdp_update_plain(w, x, y, *args)
+    before = build.STDP_UPDATE.launches
+    got = stdp_update.stdp_update(w.to(cuda_device), x.to(cuda_device),
+                                  y.to(cuda_device), *args)
+    torch.cuda.synchronize()
+    assert build.STDP_UPDATE.launches == before + 1
+    assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+
+def test_stdp_update_refuses_bad_operands(cuda_device):
+    w = torch.zeros((8, 2), device=cuda_device)
+    x = torch.zeros(8, device=cuda_device)
+    y = torch.zeros(2, device=cuda_device)
+    args = (0.5, 0.5, 0.5, 7, 16)
+    with pytest.raises(ValueError):
+        stdp_update.stdp_update(w.double(), x, y, *args)
+    with pytest.raises(ValueError):
+        stdp_update.stdp_update(w, x.cpu(), y, *args)
+    with pytest.raises(ValueError):
+        stdp_update.stdp_update(w, x[:7], y, *args)
+    with pytest.raises(ValueError):
+        stdp_update.stdp_update(w.t(), y, x, *args)
+    stdp_update.stdp_update(w, x, y, *args)  # the same call, well formed
+
+
+def test_ops_entry_points_on_card_match_cpu(cuda_device):
+    cfg = ColumnConfig(p=96, q=4, t_max=64, neuron=NeuronConfig(threshold=80.0))
+    rng = np.random.default_rng(5)
+    w0 = torch.from_numpy(rng.uniform(0, 7, (96, 4)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(0, 70, (30, 96)).astype(np.int32))
+    fused_cpu = ops.train_volleys({"w": w0}, x, cfg)["w"]
+    fused = ops.train_volleys({"w": w0.to(cuda_device)}, x.to(cuda_device), cfg)["w"]
+    w, xd = w0.to(cuda_device), x.to(cuda_device)
+    before = (build.RNL_FIRE.launches, build.STDP_UPDATE.launches)
+    for i in range(x.shape[0]):
+        y = ops.column_forward({"w": w}, xd[i : i + 1], cfg)
+        w = ops.stdp_step(w, xd[i], y[0], cfg)
+    assert (build.RNL_FIRE.launches, build.STDP_UPDATE.launches) == (
+        before[0] + 30, before[1] + 30)
+    assert torch.equal(fused.cpu(), fused_cpu)
+    assert torch.equal(w.cpu(), fused_cpu)
