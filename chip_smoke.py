@@ -7,21 +7,25 @@ Runs from the root of a checkout on a host with one NVIDIA H100 (sm_90)
 and the CUDA toolkit.  Imports the port (``src/repro_torch``) only, never
 JAX or the JAX package.  Phases, each of which asserts:
 
-1. build: all five CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build: all six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
 2. the fused-step kernel against its plain PyTorch version (D = 1 at
    WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1 and 2;
-   stabilizer on and off): winner times and weights bit-equal;
+   stabilizer on and off; D = 2 at 650 x 130, which runs in the kernel's
+   device-memory layout): winner times and weights bit-equal;
 3. the RNL-fire kernel against its plain version (B = 905 at 270 x 25,
-   B = 121 at 637 x 2): equal;
+   B = 121 at 637 x 2, B = 121 at 650 x 130 in the device-memory
+   layout): equal;
 4. the volley-block kernel against its plain version (D = 1 and D = 4
    heterogeneous envelopes, v_blk 1, 7 and 32 with tails, wta_k 1 and 2,
-   stabilizer on and off, a threshold-0 design with a tail; and a D = 12
-   block of the on/off 540 x 50 envelope at v_blk 32, which the wrapper
-   folds as sub-launches of the 7 volleys that fit in shared memory):
-   weights bit-equal, sub-launches as computed;
+   stabilizer on and off, a threshold-0 design with a tail, D = 2 at
+   650 x 130 in the device-memory layout; and a D = 12 block of the
+   on/off 540 x 50 envelope at v_blk 32, which the wrapper folds as
+   sub-launches of the 7 volleys that fit in shared memory): weights
+   bit-equal, sub-launches as computed;
 5. the batched-fire kernel against its plain version (D = 4
-   heterogeneous, N = 905 at 270 x 50 and 637 x 2): times and ids equal;
+   heterogeneous, N = 905 at 270 x 50 and 637 x 2, N = 121 at 650 x 130
+   in the device-memory layout): times and ids equal;
    once phase 8 has run, again on the very inputs of each of the
    integer-grid sweep's launches (each bucket's trained weights and
    volleys);
@@ -58,12 +62,41 @@ JAX or the JAX package.  Phases, each of which asserts:
 12. the hardware generator (host only): the chosen design through
     ``hwgen.run_flow`` to TNN7 post-layout metrics, and the seven
     Table II ``hardware_spec`` flows;
-13. timing at the paths' shapes with CUDA events, beside each kernel's
+13. the sweep that needed the device-memory layout, launch counters read
+    around it: ``simulator.cluster_time_series_many`` over the Lightning2
+    synthetic double (p 637, full N) at q 25 and 50 x two thresholds, 2
+    epochs, ``on_error='raise'`` (a volley of the 637 x 50 envelope needs
+    257,748 B of shared memory beside the weights); then on the CPU from
+    the same initial weights: nothing quarantined, equal ids, Rand index
+    and weights;
+14. the flash-attention kernel against its plain version on the card
+    (f32 at the JAX package's test shapes, < 2e-5 of the largest output;
+    the granite-3-8b prefill shape in bf16, < 2e-2, and in f32, < 2e-5;
+    a ragged S = 1000, a non-causal and an MHA case); each case also per
+    element against the plain version in f32 on the same values, within
+    one rounding to its dtype plus 1e-5 of the largest output;
+15. the LM slice at full width, 2 layers: granite-3-8b in f32, B 1, a
+    100-token prompt and 4 decode steps, card logits (the kernel) against
+    CPU logits (the plain version) from the same weights, < 1e-4 of the
+    largest, TF32 off; the JAX package's serve-matches-forward property
+    (prefill of 6 tokens + 6 decode steps against the forward) on the
+    card, in f32 < 3e-3, and in bf16 within two bf16 steps of the
+    largest logit for three weight seeds (the JAX package's own bf16
+    error is 1.4-1.7 steps);
+16. the LM serving path, launch counters read around it:
+    ``repro_torch.launch.serve.serve`` on granite-3-8b at full width and
+    depth (40 layers, bf16, random weights from a seed), batch 4, prompt
+    2048, 16 tokens: 40 flash launches per prefill, finite logits, peak
+    device memory, prefill and decode times (then again, warm);
+17. timing at the paths' shapes with CUDA events, beside each kernel's
     bound on the card: the volley-block kernel on the default sweep's
     first launch (D = 12 at 270 x 50, v_blk = 32), the batched fire on
     each of the integer-grid sweep's launches (the kernels line sums
     them), the STDP update on the ops path's first volley and at the
-    phase 6 shapes.
+    phase 6 shapes, the four fire kernels at 650 x 130 in the
+    device-memory layout, and the flash kernel at the granite prefill
+    shape beside its plain version and PyTorch's
+    ``scaled_dot_product_attention``.
 
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -85,6 +118,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # f32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, on the tensor cores
 EPOCHS = 8
 DSE_EPOCHS = 4
 CPU_CHECKED = ("WordSynonyms", "Lightning2")
@@ -92,6 +126,8 @@ STDP_SHAPES = ((13, 3), (270, 25), (650, 130), (7, 1), (540, 50))
 # candidates checked on the CPU: q 50, t_max 64, threshold scale 1.0,
 # latency (270 x 50) and on/off (540 x 50)
 DSE_CPU_CHECKED = (10, 22)
+# the LM serving path: granite-3-8b's prefill shape
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "granite-3-8b", 4, 2048, 16
 
 
 def log(*a):
@@ -158,10 +194,16 @@ def fire_ops(p: int, t_fire, t_max, live=None) -> int:
     return int(2 * p * int(cycles.sum()))
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, n_ops: int,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     b = n_bytes / HBM_BYTES_PER_S * 1e3
-    o = n_ops / F32_OPS_PER_S * 1e3
+    o = n_ops / ops_per_s * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def layout_name(kernel, *dims) -> str:
+    """The layout the kernel's wrapper picks at these dimensions."""
+    return "resident" if kernel.resident("", *dims) else "device-memory layout"
 
 
 # ------------------------------------------------- the padded kernels
@@ -185,6 +227,7 @@ BLOCK_CASES = (
     (4, 637, 2, 7, 4, 2, True),
     (4, 270, 25, 1, 1, 1, True),
     (4, 637, 2, 32, 32, 1, False),
+    (2, 650, 130, 32, 20, 1, True),   # the device-memory layout
 )
 
 
@@ -193,6 +236,8 @@ def check_fused_block(fused_column, dev) -> float:
     the largest difference (0 when it passes)."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels import build
 
     worst = 0.0
     for case in BLOCK_CASES + ((2, 40, 6, 4, 2, 1, False),):
@@ -220,7 +265,8 @@ def check_fused_block(fused_column, dev) -> float:
         dw = float((got - ref).abs().max())
         worst = max(worst, dw)
         log(f"[fused_block] D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid} "
-            f"k={k} stabilize={stab} threshold0={degenerate} max|dw|={dw}")
+            f"k={k} stabilize={stab} threshold0={degenerate} max|dw|={dw} "
+            f"{layout_name(build.FUSED_BLOCK, p, q, 1)}")
         assert torch.equal(got, ref), "fused_block: weights differ"
         if degenerate:
             unmasked = fused_column.fused_block_padded_plain(w, t_in, ops, v_blk, **kw)
@@ -234,8 +280,10 @@ def check_fire_block(fused_column, dev) -> float:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import build
+
     worst = 0.0
-    for n, p, q in ((905, 270, 50), (905, 637, 2)):
+    for n, p, q in ((905, 270, 50), (905, 637, 2), (121, 650, 130)):
         d = 4
         rng = np.random.default_rng(n + p + q)
         w = torch.from_numpy(half_grid(rng, (d, p, q)))
@@ -253,7 +301,8 @@ def check_fire_block(fused_column, dev) -> float:
         dt = float((got - ref).abs().max())
         worst = max(worst, dt)
         log(f"[fire_block] D={d} N={n} {p}x{q} max|dt|={dt} "
-            f"ids equal={torch.equal(ids, ids_ref)}")
+            f"ids equal={torch.equal(ids, ids_ref)} "
+            f"{layout_name(build.FIRE_BLOCK, p, q)}")
         assert torch.equal(got, ref), "fire_block: firing times differ"
         assert torch.equal(ids, ids_ref), "fire_block: ids differ"
     return worst
@@ -455,6 +504,382 @@ def n_valid_per_block(n: int, v_blk: int) -> list:
     return [min(v_blk, n - v_blk * i) for i in range(-(-n // v_blk))]
 
 
+
+# ------------------------------------------------------ the LM slice
+def rel_err(got, want) -> float:
+    """Largest difference relative to the largest reference value."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def repair_sweep(simulator, ColumnConfig, build, ucr, dev, card) -> None:
+    """Phase 13: the Lightning2 sweep at q 25 and 50 (a 637 x 50 envelope
+    whose volley does not fit in shared memory beside its weights) on the
+    card, launch counters read around it, then on the CPU from the same
+    initial weights."""
+    import numpy as np
+    import torch
+
+    ds = ucr.load("Lightning2")
+    n, p = ds.x.shape
+    cfgs = []
+    for q in (25, 50):
+        for scale in (1.0, 1.25):
+            c = ColumnConfig(p=p, q=q, t_max=64)
+            cfgs.append(c.with_threshold(scale * simulator.suggest_threshold(c)))
+    rng = np.random.default_rng(637)
+    w_init = [rng.uniform(0, 7, (c.p, c.q)).astype(np.float32) for c in cfgs]
+    one = build.FUSED_BLOCK.smem_bytes(p, 50, 1)
+    assert one > build.MAX_SMEM_BYTES and not build.FUSED_BLOCK.resident("", p, 50, 1)
+    for k in build.KERNELS:
+        k.launches = 0
+    res = simulator.cluster_time_series_many(
+        ds.x, ds.y, cfgs, epochs=2, w_init=w_init, on_error="raise", device=dev)
+    launches = {k.name: k.launches for k in build.KERNELS}
+    log(f"[repair] Lightning2 {p}x(25,50) N={n} 2 epochs: one volley needs {one} B "
+        f"beside the weights (> {build.MAX_SMEM_BYTES}); buckets={res[0].buckets} "
+        f"train_seconds={res[0].train_seconds!r} launches={launches} | {card}")
+    assert launches["fused_block"] > 0, launches
+    t0 = time.perf_counter()
+    cpu = simulator.cluster_time_series_many(
+        ds.x, ds.y, cfgs, epochs=2, w_init=w_init, on_error="raise", device="cpu")
+    for c, r, rc in zip(cfgs, res, cpu):
+        assert isinstance(r, simulator.ClusteringResult), r  # not quarantined
+        assert r.lowering == "cuda" and r.retries == 0, (r.lowering, r.retries)
+        same_a = bool(np.array_equal(r.assignments, rc.assignments))
+        same_w = torch.equal(r.params["w"].cpu(), rc.params["w"])
+        log(f"[repair] q={c.q} threshold={c.neuron.threshold} RI card="
+            f"{r.rand_index!r} cpu={rc.rand_index!r} equal_ids={same_a} "
+            f"weights equal={same_w} cpu_seconds={time.perf_counter() - t0:.1f}")
+        assert same_a and same_w and r.rand_index == rc.rand_index
+
+
+# (B, Sq, Hq, Hkv, d, causal, dtype, tolerance relative to the largest output)
+FLASH_CASES = (
+    (2, 256, 4, 2, 64, True, "float32", 2e-5),   # the JAX package's test shapes,
+    (1, 128, 2, 1, 32, False, "float32", 2e-5),  # with grouped KV heads
+    (2, 384, 3, 1, 128, True, "float32", 2e-5),
+    (1, 512, 1, 1, 64, True, "float32", 2e-5),
+    (LM_BATCH, LM_PROMPT, 32, 8, 128, True, "bfloat16", 2e-2),  # granite prefill
+    (LM_BATCH, LM_PROMPT, 32, 8, 128, True, "float32", 2e-5),  # its grid in f32
+    (2, 1000, 32, 8, 128, True, "float32", 2e-5),  # ragged
+    (1, 1000, 8, 2, 128, False, "bfloat16", 2e-2),  # non-causal
+    (1, 512, 8, 8, 128, True, "float32", 2e-5),  # MHA
+)
+
+
+def flash_inputs(b, sq, hq, hkv, d, dtype, dev, seed=0):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype) for shape in (
+        (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d)))
+
+
+def check_flash(flash_lib, dev) -> float:
+    """Phase 14: the flash kernel against its plain version on the card;
+    returns the largest absolute difference.
+
+    Each case is held twice: relative to the largest output (the JAX
+    package's tolerances), and per element against the plain version
+    evaluated in f32 on the same values, within one rounding of the output
+    to q's dtype (unit roundoff u) plus 1e-5 of the largest output for the
+    f32 summation order.  The second is what holds the rows far from the
+    largest output (row 0 is v[0]; most causal rows are ~50 times smaller).
+    The bf16 plain version is not held per element: it rounds the
+    probabilities to bf16 before the PV product and the kernel does not,
+    which moves rows whose values cancel by more than a bf16 step."""
+    import torch
+
+    worst = 0.0
+    for b, sq, hq, hkv, d, causal, dt, tol in FLASH_CASES:
+        q, k, v = flash_inputs(b, sq, hq, hkv, d, getattr(torch, dt), dev, seed=sq + d)
+        got = flash_lib.flash_attention(q, k, v, causal)
+        ref = flash_lib.flash_attention_plain(q, k, v, causal)
+        err = rel_err(got, ref)
+        dmax = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, dmax)
+        if dt == "float32":
+            ref32, u = ref, 2.0 ** -24
+        else:
+            ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+            u = 2.0 ** -8
+        bound = u * ref32.abs() + 1e-5 * ref32.abs().max()
+        ratio = float(((got.float() - ref32).abs() / bound).max())
+        rms = float(ref32.pow(2).mean().sqrt())
+        log(f"[flash] B={b} S={sq} Hq={hq} Hkv={hkv} d={d} causal={causal} {dt}: "
+            f"max|d|={dmax} relative to the largest={err} (< {tol}); per element "
+            f"against f32, largest |d| / (u|ref| + 1e-5 max|ref|)={ratio} (<= 1, "
+            f"u={u}, max|ref|={float(ref32.abs().max())}, rms(ref)={rms})")
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert err < tol, ("flash_attention differs from its plain version", err)
+        assert ratio <= 1, ("flash_attention differs per element", ratio)
+        del q, k, v, got, ref, ref32, bound
+    return worst
+
+
+def serve_vs_forward(T, model, toks) -> tuple[float, float]:
+    """The JAX package's property: prefill of half the tokens, then one
+    decode step per token, against the forward: (the largest difference
+    relative to the largest logit, the largest logit)."""
+    import torch
+
+    s = toks.shape[1]
+    with torch.inference_mode():
+        full = T.forward(model, toks)
+        cache, lg = T.prefill(model, toks[:, : s // 2], max_len=s + 2)
+        outs = [lg]
+        for t in range(s // 2, s):
+            cache, lg = T.decode_step(model, cache, toks[:, t : t + 1])
+            outs.append(lg)
+    return rel_err(torch.cat(outs, dim=1), full), float(full.float().abs().max())
+
+
+def lm_slice_checks(T, cfg_full, dev) -> None:
+    """Phase 15: the LM at full width, 2 layers: card logits against CPU
+    logits in f32 (the kernel against its plain version inside the model);
+    the serve-matches-forward property on the card in f32 at its
+    tolerance, and in bf16 within two bf16 steps of the largest logit."""
+    import dataclasses
+    import math
+
+    import torch
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
+    card_m = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5),
+                           device=dev)
+    cpu_m = T.params_from_jax(T.params_to_numpy(card_m), cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 104),
+                         generator=torch.Generator().manual_seed(6))
+    errs = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        c_cpu, l_cpu = T.prefill(cpu_m, toks[:, :100], max_len=110)
+        c_card, l_card = T.prefill(card_m, toks[:, :100].to(dev), max_len=110)
+        errs.append(rel_err(l_card, l_cpu))
+        for t in range(100, 104):
+            c_cpu, l_cpu = T.decode_step(cpu_m, c_cpu, toks[:, t : t + 1])
+            c_card, l_card = T.decode_step(card_m, c_card, toks[:, t : t + 1].to(dev))
+            errs.append(rel_err(l_card, l_cpu))
+    log(f"[lm] {cfg.name} full width, 2 layers, f32: card vs CPU logits relative "
+        f"to the largest, prefill(100) then 4 decode steps: {errs} (< 1e-4; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    assert max(errs) < 1e-4, errs
+    assert bool(torch.isfinite(l_card).all())
+    del cpu_m, c_cpu, c_card
+
+    # the JAX package's test_serve_matches_forward: B 2, 12 tokens, in its
+    # own dtype (f32) and tolerance
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8))
+    err, _ = serve_vs_forward(T, card_m, toks)
+    log(f"[lm] {cfg.name} full width, 2 layers, f32: serve vs forward logits "
+        f"relative to the largest {err} (< 3e-3)")
+    assert err < 3e-3, err
+    del card_m
+
+    # in bf16 the logits themselves are rounded to bf16, and one step of
+    # bf16 at the largest logit (~5) is ~6e-3 of it: any difference of the
+    # two paths' hidden states can move a logit by a step.  The JAX
+    # package's own bf16 serve-vs-forward error is 1.4-1.7 such steps
+    # (tests/test_torch_lm.py), so the bound is two steps.
+    # Three weight seeds, each held to the bound, so the bound is not one
+    # run's reading.
+    cfg = dataclasses.replace(cfg_full, n_layers=2)  # bf16
+    for seed in (7, 17, 27):
+        model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+        err, mx = serve_vs_forward(T, model, toks)
+        del model
+        step = 2.0 ** (math.floor(math.log2(mx)) - 7) / mx
+        log(f"[lm] {cfg.name} full width, 2 layers, bf16, weight seed {seed}: serve "
+            f"vs forward logits relative to the largest {err} = {err / step} bf16 "
+            f"steps of the largest logit {mx} (<= 2 steps: {2 * step})")
+        assert err <= 2 * step, (seed, err, step)
+
+
+def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
+    """Phase 16: the serving path at full width and depth, launch counters
+    reset just before it and read just after; then again, warm.  Returns
+    its numbers."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    for k in build.KERNELS:
+        k.launches = 0
+    r = serve_lib.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, tokens=LM_TOKENS,
+                        device=dev, model=model)
+    launches = {k.name: k.launches for k in build.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(r.prefill_logits).all()) and bool(
+        torch.isfinite(r.last_logits).all())
+    log(f"[serve] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype} "
+        f"({n_params} parameters): prefill[{LM_BATCH}x{LM_PROMPT}] "
+        f"{r.prefill_s * 1e3!r} ms, {LM_TOKENS} tokens, decode "
+        f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches}; peak device "
+        f"memory {peak} B; logits finite={finite} | {card}")
+    log(f"[serve] sample generations: {r.generations[:2, :8].tolist()}")
+    assert launches == {k.name: 0 for k in build.KERNELS} | {
+        "flash_attention": cfg.n_layers}, launches
+    assert finite and r.generations.shape == (LM_BATCH, LM_TOKENS)
+    assert r.prefill_logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded)
+    assert int(r.generations.max()) < cfg.vocab_size
+    out = dict(launches=launches["flash_attention"], peak=peak,
+               prefill_ms=r.prefill_s * 1e3, decode_ms=r.decode_s_per_token * 1e3)
+    del r
+    warm = serve_lib.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                           tokens=LM_TOKENS, device=dev, model=model)
+    log(f"[serve] warm: prefill[{LM_BATCH}x{LM_PROMPT}] {warm.prefill_s * 1e3!r} ms, "
+        f"decode {warm.decode_s_per_token * 1e3!r} ms/token | {card}")
+    del warm
+    out["profile"] = profile_serving(T, model, cfg, dev, card)
+    return out
+
+
+def profile_serving(T, model, cfg, dev, card) -> dict:
+    """Where the serving time goes: one prefill and four decode steps
+    under ``torch.profiler``, device time summed by kernel (the flash
+    kernel apart) against the host clock of the same, profiled, run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(prof, match=None) -> tuple[float, int]:
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and (
+                    match is None or match in e.key):
+                total += e.self_device_time_total
+                n += e.count
+        return total, n
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
+                            device=dev)
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cache, logits = T.prefill(model, prompts, max_len=LM_PROMPT + 8)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, n = device_us(prof)
+        flash, n_flash = device_us(prof, "flash_kernel")
+        out["prefill"] = (wall, busy / 1e3, n, flash / 1e3, n_flash)
+        log(f"[profile] prefill[{LM_BATCH}x{LM_PROMPT}] wall {wall!r} ms (profiled); "
+            f"device busy {busy / 1e3!r} ms in {n} kernels, of which flash_kernel "
+            f"{flash / 1e3!r} ms in {n_flash}; device idle share "
+            f"{1 - busy / 1e3 / wall!r} | {card}")
+        tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
+        del logits
+        steps = 4
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                cache, lg = T.decode_step(model, cache, tok)
+                tok = torch.argmax(lg[:, -1:, : cfg.vocab_size], dim=-1)
+                tok.cpu()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        busy, n = device_us(prof)
+        out["decode"] = (wall, busy / 1e3 / steps, n / steps)
+        log(f"[profile] decode step (B={LM_BATCH}) wall {wall!r} ms (profiled); device "
+            f"busy {busy / 1e3 / steps!r} ms in {n / steps} kernels a step; device "
+            f"idle share {1 - busy / 1e3 / steps / wall!r} | {card}")
+    return out
+
+
+def flash_bound(b, sq, hq, hkv, d, elem_bytes) -> tuple[int, int]:
+    """Bytes and operations of one causal flash launch with Sq = Skv: Q,
+    K, V read and O written once; QK and PV over the causal triangle,
+    2 d operations per (query, key) pair each."""
+    n_bytes = elem_bytes * (2 * b * sq * hq * d + 2 * b * sq * hkv * d)
+    n_ops = 4 * d * (sq * (sq + 1) // 2) * b * hq
+    return n_bytes, n_ops
+
+
+def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
+    """The four fire kernels at 650 x 130, where each takes its
+    device-memory layout: ms, plain ms, bound ms and what bounds it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(650)
+    p, q, n_b = 650, 130, 121
+    w_d = torch.from_numpy(half_grid(rng, (2, p, q))).to(dev)
+    blk_d = torch.from_numpy(rng.integers(0, 72, (2, 32, p)).astype(np.float32)).to(dev)
+    xs_d = torch.from_numpy(rng.integers(0, 72, (2, n_b, p)).astype(np.float32)).to(dev)
+    ops_d = fused_column.design_operands([0.25 * p * 3.5] * 2, [64, 64], [q, q],
+                                         0.5, 0.5, 1 / 1024, device=dev)
+    kw_d = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
+    fkw = dict(t_window=64, w_max=7)
+    thr = 0.25 * p * 3.5
+    w1, x1, ops1 = w_d[:1].contiguous(), blk_d[:1, 0].contiguous(), ops_d[:1]
+    t1 = fused_column.fire_dense_ref(torch.round(torch.clamp(w_d[0], 0, 7)), x1[0],
+                                     thr, 64)
+    tf_rnl = rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7)
+    cases = (
+        ("fused_step", "D=1 one volley",
+         lambda: fused_column.fused_step_padded(w1, x1, ops1, **kw_d),
+         lambda: fused_column.fused_step_padded_plain(w1, x1, ops1, **kw_d),
+         (4 * (2 * p * q + p + 6 + q), fire_ops(p, t1, 64) + 10 * p * q), 200),
+        ("rnl_fire", f"B={n_b}",
+         lambda: rnl_response.rnl_fire(xs_d[0], w_d[0], thr, 64, 7),
+         lambda: rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7),
+         (4 * (n_b * p + p * q + n_b * q), fire_ops(p, tf_rnl, 64)), 20),
+        ("fused_block", "D=2 v_blk=32",
+         lambda: fused_column.fused_block_padded(w_d, blk_d, ops_d, 32, **kw_d),
+         lambda: fused_column.fused_block_padded_plain(w_d, blk_d, ops_d, 32, **kw_d),
+         block_bound(fused_column, w_d, blk_d, ops_d, kw_d), 5),
+        ("fire_block", f"D=2 N={n_b}",
+         lambda: fused_column.fire_block_padded(w_d, xs_d, ops_d, **fkw),
+         lambda: fused_column.fire_block_padded_plain(w_d, xs_d, ops_d, **fkw),
+         fire_bound(fused_column, w_d, xs_d, ops_d, fkw), 20),
+    )
+    out = {}
+    for name, shape, kern, plain, (n_bytes, n_ops), reps in cases:
+        ms = timer(kern, reps)
+        plain_ms = timer(plain, 2, warmup=1)
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        out[name] = (ms, plain_ms, b_ms, by)
+        log(f"[time] device-memory layout {name} {p}x{q} {shape} ms={ms!r} "
+            f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({by}; {n_bytes} B, "
+            f"{n_ops} ops) | {card}")
+    return out
+
+
+def time_flash(flash_lib, timer, dev, card) -> tuple:
+    """The flash kernel at the granite prefill shape, beside its plain
+    version and PyTorch's fused attention (timed here, never called by the
+    port): (ms, plain ms, bound ms, what bounds it, library ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = flash_inputs(LM_BATCH, LM_PROMPT, 32, 8, 128, torch.bfloat16, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, d] views
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    ms = timer(lambda: flash_lib.flash_attention(q, k, v, True), 20)
+    plain_ms = timer(lambda: flash_lib.flash_attention_plain(q, k, v, True), 3,
+                     warmup=1)
+    lib_ms = timer(sdpa, 20)
+    err = rel_err(sdpa().transpose(1, 2), flash_lib.flash_attention(q, k, v, True))
+    n_bytes, n_ops = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2)
+    b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[time] flash_attention B={LM_BATCH} S={LM_PROMPT} Hq=32 Hkv=8 d=128 bf16 "
+        f"causal ms={ms!r} plain_ms={plain_ms!r} sdpa_ms={lib_ms!r} "
+        f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops at the bf16 peak); "
+        f"SDPA against the kernel, relative to the largest: {err} | {card}")
+    return ms, plain_ms, b_ms, by, lib_ms
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -480,8 +905,12 @@ def main() -> int:
     from repro_torch.data import ucr
     from repro_torch.hwgen import run_flow
     from repro_torch.hwgen.rtl import ColumnSpec
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build, fused_column, rnl_response, stdp_update
+    from repro_torch.kernels import flash_attention as flash_lib
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import transformer as T
 
     dev = torch.device("cuda")
     card = card_line()
@@ -522,6 +951,7 @@ def main() -> int:
         (1, 270, 25, 1, True, False), (1, 270, 25, 2, False, False),
         (1, 637, 2, 1, True, False), (1, 637, 2, 2, False, False),
         (4, 270, 25, 2, True, True), (4, 270, 25, 1, False, True),
+        (2, 650, 130, 2, True, True),  # the device-memory layout
     ):
         w, t_in, ops = fused_case(d, p, q, seed=d * 1000 + p + q + k_, hetero=hetero)
         kw = dict(t_window=64, w_max=7, wta_k=k_, stabilize=stab)
@@ -533,12 +963,12 @@ def main() -> int:
         dy = float((y_k.cpu() - y_ref).abs().max())
         err["fused_step"] = max(err["fused_step"], dw, dy)
         log(f"[fused_step] D={d} {p}x{q} k={k_} stabilize={stab} "
-            f"max|dw|={dw} max|dy|={dy}")
+            f"max|dw|={dw} max|dy|={dy} {layout_name(build.FUSED_STEP, p, q)}")
         assert torch.equal(y_k.cpu(), y_ref), "fused_step: winner times differ"
         assert torch.equal(w_k.cpu(), w_ref), "fused_step: weights differ"
 
     # 3 — RNL fire against its plain version
-    for b, p, q in ((905, 270, 25), (121, 637, 2)):
+    for b, p, q in ((905, 270, 25), (121, 637, 2), (121, 650, 130)):
         rng = np.random.default_rng(b)
         w = torch.from_numpy(rng.integers(0, 15, (p, q)).astype(np.float32) / 2)
         t_in = torch.from_numpy(rng.integers(0, 72, (b, p)).astype(np.int32))
@@ -548,7 +978,8 @@ def main() -> int:
         torch.cuda.synchronize()
         diff = float((got.cpu() - ref).abs().max())
         err["rnl_fire"] = max(err["rnl_fire"], diff)
-        log(f"[rnl_fire] B={b} {p}x{q} max|dt|={diff}")
+        log(f"[rnl_fire] B={b} {p}x{q} max|dt|={diff} "
+            f"{layout_name(build.RNL_FIRE, p, q)}")
         assert torch.equal(got.cpu(), ref), "rnl_fire: firing times differ"
 
     # 4, 5 — the padded kernels against their plain versions
@@ -768,7 +1199,7 @@ def main() -> int:
         f"{torch.equal(w_fused.cpu(), w_cpu)} | {card}")
     assert ops_launches == {"fused_step": n_ws, "rnl_fire": n_ws,
                             "fused_block": 0, "fire_block": 0,
-                            "stdp_update": n_ws}, ops_launches
+                            "stdp_update": n_ws, "flash_attention": 0}, ops_launches
     assert torch.equal(w_loop, w_fused), "ops: unfused loop and train_volleys differ"
     assert torch.equal(w_fused.cpu(), w_cpu), "ops: card and CPU differ"
     assert not torch.equal(w_fused, w_start)
@@ -886,7 +1317,23 @@ def main() -> int:
                 f"{fr.leakage_uw!r} uW latency {fr.latency_ns!r} ns")
             assert fr.area_um2 > 0 and fr.leakage_uw > 0
 
-    # 13 — timing at the paths' shapes
+    # 13 — the sweep that needed the device-memory layout
+    repair_sweep(simulator, ColumnConfig, build, ucr, dev, card)
+
+    # 14 — the flash kernel against its plain version; f32 products in
+    # full f32 on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err["flash_attention"] = check_flash(flash_lib, dev)
+
+    # 15, 16 — the LM slice at 2 layers, then the serving path
+    lm_cfg = get_arch(LM_ARCH)
+    lm_slice_checks(T, lm_cfg, dev)
+    torch.cuda.empty_cache()
+    lm = lm_serving(T, serve_lib, lm_cfg, build, dev, card)
+    torch.cuda.empty_cache()
+
+    # 17 — timing at the paths' shapes
     timer = Timer(torch)
     rows = {}
     for name, (cfg, ds, _) in designs.items():
@@ -999,11 +1446,20 @@ def main() -> int:
         log(f"[time] stdp_update {p}x{q} {label} ms={s_ms!r} plain_ms={s_plain!r} "
             f"bound_ms={s_bound!r} ({s_by}; {s_bytes} B, {s_ops} ops) | {card}")
 
-    # 14 — the kernels line; launches from each kernel's own path
+    # the four fire kernels at 650 x 130, in their device-memory layout;
+    # the flash kernel at the granite prefill shape
+    rows["device_layout"] = time_device_layout(
+        fused_column, rnl_response, timer, dev, card)
+    rows["flash"] = time_flash(flash_lib, timer, dev, card)
+    log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
+        f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
+
+    # 18 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]
     path_launches = dict(launches, fused_block=sweep_launches["fused_block"],
                          fire_block=sweep_launches["fire_block"],
-                         stdp_update=ops_launches["stdp_update"])
+                         stdp_update=ops_launches["stdp_update"],
+                         flash_attention=lm["launches"])
     entries = []
     for k, r, shape in (
         (build.FUSED_STEP, wsr["fused"], "D=1 270x25 t_max=64"),
@@ -1022,6 +1478,17 @@ def main() -> int:
             "bound_ms": r[2], "bound_by": r[3], "library_ms": None,
             "shape": shape,
         })
+    k = build.FLASH_ATTENTION
+    entries.append({
+        "name": k.name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k.source}",
+        "replaces": k.replaces.split()[0], "launches": path_launches[k.name],
+        "max_abs_err": err[k.name], "ms": rows["flash"][0],
+        "plain_ms": rows["flash"][1], "bound_ms": rows["flash"][2],
+        "bound_by": rows["flash"][3], "library_ms": rows["flash"][4],
+        "shape": f"B={LM_BATCH} S={LM_PROMPT} Hq=32 Hkv=8 d=128 bf16 causal "
+                 f"(one layer of the {LM_ARCH} prefill)",
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -6,6 +6,9 @@
 #                  sweep's batched assignment fire (csrc/fire_block.cu)
 #   rnl_response — batched RNL firing times (csrc/rnl_fire.cu)
 #   stdp_update  — the expected STDP update of one volley (csrc/stdp_update.cu)
+#   flash_attention — the LM's prefill attention (csrc/flash_attention.cu);
+#                  imported by models.layers, not here, so that importing
+#                  the TNN kernels does not import the LM
 #   ops          — the public entry points: column_forward, rnl_fire,
 #                  stdp_step, train_volleys
 # ref.py holds the plain oracles; build.py compiles csrc/ with nvcc at

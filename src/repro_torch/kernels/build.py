@@ -22,16 +22,20 @@ import subprocess
 import tempfile
 from typing import Optional, Sequence
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-HEADERS = ("tnn_column.cuh",)
 
-# --fmad=false: no contraction of w + mu * s into an FMA (bit parity with
-# the plain PyTorch versions); sm_90a: Hopper.
+# sm_90a: Hopper.  Each kernel adds its own flags (``CudaKernel.flags``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# --fmad=false: no contraction of w + mu * s into an FMA (bit parity of the
+# TNN column kernels with their plain PyTorch versions).
+EXACT_FLAGS = ("--fmad=false",)
+TNN_HEADERS = ("tnn_column.cuh",)
 
 # Shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
@@ -70,9 +74,13 @@ class CudaKernel:
     symbol: str
     argtypes: tuple
     replaces: str
-    # argument types of the ``<symbol>_smem_bytes`` entry point: the
-    # shape dimensions that size the block's shared memory
-    smem_argtypes: tuple = (ctypes.c_int, ctypes.c_int)
+    # argument types of the ``<symbol>_smem_bytes`` entry point: the shape
+    # dimensions that size the block's shared memory, then the layout
+    # (1: the design's weights resident in shared memory, 0: in device
+    # memory); None for a kernel without that entry point
+    smem_argtypes: Optional[tuple] = (ctypes.c_int, ctypes.c_int, ctypes.c_int)
+    flags: tuple = EXACT_FLAGS
+    headers: tuple = TNN_HEADERS
     launches: int = 0
     ptxas_log: str = ""
     _fn: Optional[object] = dataclasses.field(default=None, repr=False)
@@ -80,8 +88,8 @@ class CudaKernel:
     _lib: Optional[ctypes.CDLL] = dataclasses.field(default=None, repr=False)
 
     def library_path(self) -> pathlib.Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for f in (self.source,) + HEADERS:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + self.flags).encode())
+        for f in (self.source,) + self.headers:
             h.update((CSRC / f).read_bytes())
         return BUILD_DIR / f"{pathlib.Path(self.source).stem}-{h.hexdigest()[:16]}.so"
 
@@ -94,7 +102,8 @@ class CudaKernel:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / self.source)],
+            [nvcc_path(), *NVCC_FLAGS, *self.flags, "-o", tmp,
+             str(CSRC / self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp, out
@@ -104,9 +113,11 @@ class CudaKernel:
         fn = getattr(lib, self.symbol)
         fn.argtypes = list(self.argtypes)
         fn.restype = ctypes.c_int
-        smem = getattr(lib, self.symbol + "_smem_bytes")
-        smem.argtypes = list(self.smem_argtypes)
-        smem.restype = ctypes.c_size_t
+        smem = None
+        if self.smem_argtypes is not None:
+            smem = getattr(lib, self.symbol + "_smem_bytes")
+            smem.argtypes = list(self.smem_argtypes)
+            smem.restype = ctypes.c_size_t
         self._lib, self._fn, self._smem = lib, fn, smem
 
     def function(self):
@@ -116,20 +127,38 @@ class CudaKernel:
             build_all(KERNELS)
         return self._fn
 
-    def smem_bytes(self, *dims: int) -> int:
-        """Shared memory one thread block needs at these dimensions."""
+    def smem_bytes(self, *dims: int, resident: bool = True) -> int:
+        """Shared memory one thread block needs at these dimensions, in the
+        resident layout or in the device-memory one."""
         self.function()
-        return int(self._smem(*dims))
+        return int(self._smem(*dims, int(resident)))
 
-    def check_smem(self, what: str, *dims: int) -> None:
-        """Raise ValueError when one thread block at these dimensions needs
-        more shared memory than a block may use on an H100."""
-        smem = self.smem_bytes(*dims)
+    def resident(self, what: str, *dims: int) -> bool:
+        """The layout a launch at these dimensions takes: True (the
+        design's weights and grid in shared memory) wherever that fits in
+        what a block may use on an H100, else False (weights and grid in
+        device memory).  Raises ValueError when neither fits."""
+        if self.smem_bytes(*dims) <= MAX_SMEM_BYTES:
+            return True
+        smem = self.smem_bytes(*dims, resident=False)
         if smem > MAX_SMEM_BYTES:
             raise ValueError(
-                f"{self.name}: {what} needs {smem} B of shared memory "
-                f"(at most {MAX_SMEM_BYTES})"
+                f"{self.name}: {what} needs {smem} B of shared memory even "
+                f"with its weights in device memory (at most {MAX_SMEM_BYTES})"
             )
+        return False
+
+
+def grid_workspace(w: torch.Tensor, resident: bool) -> Optional[torch.Tensor]:
+    """The integer fire grid's workspace of the device-memory layout (the
+    shape of ``w``); None when the kernel keeps the grid in shared
+    memory."""
+    return None if resident else torch.empty_like(w)
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer for ctypes, None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _finish(kernel: CudaKernel, started) -> None:
@@ -175,7 +204,7 @@ FUSED_STEP = CudaKernel(
     name="fused_step",
     source="fused_step.cu",
     symbol="tnn_fused_step",
-    argtypes=(_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     replaces="src/repro/kernels/fused_column.py:468 _fused_kernel",
 )
 
@@ -183,7 +212,7 @@ RNL_FIRE = CudaKernel(
     name="rnl_fire",
     source="rnl_fire.cu",
     symbol="tnn_rnl_fire",
-    argtypes=(_P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    argtypes=(_P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _P),
     replaces="src/repro/kernels/rnl_response.py:49 _rnl_kernel",
 )
 
@@ -191,16 +220,17 @@ FUSED_BLOCK = CudaKernel(
     name="fused_block",
     source="fused_block.cu",
     symbol="tnn_fused_block",
-    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    argtypes=(_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _F, _P),
     replaces="src/repro/kernels/fused_column.py:596 _fused_block_kernel",
-    smem_argtypes=(_I, _I, _I),
+    smem_argtypes=(_I, _I, _I, _I),
 )
 
 FIRE_BLOCK = CudaKernel(
     name="fire_block",
     source="fire_block.cu",
     symbol="tnn_fire_block",
-    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    argtypes=(_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     replaces="src/repro/kernels/fused_column.py:1019 _fire_block_kernel",
 )
 
@@ -210,6 +240,21 @@ STDP_UPDATE = CudaKernel(
     symbol="tnn_stdp_update",
     argtypes=(_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P),
     replaces="src/repro/kernels/stdp_update.py:28 _stdp_kernel",
+    smem_argtypes=None,  # no shared memory
 )
 
-KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, STDP_UPDATE)
+# no bit parity to keep (a tolerance, see kernels/flash_attention.py), so
+# nvcc may contract multiply-adds
+FLASH_ATTENTION = CudaKernel(
+    name="flash_attention",
+    source="flash_attention.cu",
+    symbol="flash_attention",
+    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    replaces="src/repro/kernels/flash_attention.py:29 _flash_kernel",
+    smem_argtypes=None,
+    flags=(),
+    headers=(),
+)
+
+KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, STDP_UPDATE,
+           FLASH_ATTENTION)

@@ -16,10 +16,18 @@
 // grid and its tile's volleys in shared memory, with one warp per
 // (volley, neuron) pair walking the cycles to the first crossing.
 //
+// An envelope whose grid and tile do not fit in shared memory (pq + 8p
+// words over 227 KB) takes the device-memory layout: a first kernel rounds
+// every design's weights once into a [D, p, q] workspace the wrapper
+// allocates, and the blocks read that grid through L2, keeping only their
+// tile's volleys in shared memory.  The fire code is the same in both
+// layouts.
+//
 // Layout: operands [D, 6] f32 (threshold, t_max, q_active first);
 // xs [D, N, p] f32 (a time >= the design's t_max is silent);
 // w [D, p, q] f32; t_fire [D, N, q] f32, clamped to t_max, with neurons
-// at or past q_active set to t_max.
+// at or past q_active set to t_max; grid [D, p, q] f32 workspace of the
+// device-memory layout (unused when resident).
 #include <cuda_runtime.h>
 
 #include "tnn_column.cuh"
@@ -29,13 +37,17 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 8;  // volleys per thread block
 
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads) fire_block_kernel(
     const float* __restrict__ operands, const float* __restrict__ xs,
-    const float* __restrict__ w, float* __restrict__ t_fire, int n, int p,
-    int q, int t_window, float w_max) {
+    const float* __restrict__ w, const float* __restrict__ grid,
+    float* __restrict__ t_fire, int n, int p, int q, int t_window,
+    float w_max) {
   extern __shared__ float smem[];
-  float* swi = smem;         // [p * q] integer fire grid
-  float* sx = swi + p * q;   // [kTile * p] this tile's volleys
+  // [p * q] integer fire grid: in shared memory when resident, else the
+  // workspace tnn::fire_grid_kernel filled
+  float* swi = smem;
+  float* sx = kResident ? smem + p * q : smem;  // [kTile * p] volleys
 
   const int d = blockIdx.y;
   const int v0 = blockIdx.x * kTile;
@@ -45,9 +57,12 @@ __global__ void __launch_bounds__(kThreads) fire_block_kernel(
   const float t_max = op[1];
   const float q_live = op[2];
 
-  const float* wd = w + static_cast<size_t>(d) * p * q;
-  for (int k = threadIdx.x; k < p * q; k += blockDim.x)
-    swi[k] = tnn::fire_grid(wd[k], w_max);
+  if (kResident) {
+    const float* wd = w + static_cast<size_t>(d) * p * q;
+    for (int k = threadIdx.x; k < p * q; k += blockDim.x)
+      swi[k] = tnn::fire_grid(wd[k], w_max);
+  }
+  const float* wi = kResident ? swi : grid + static_cast<size_t>(d) * p * q;
   const float* xd = xs + (static_cast<size_t>(d) * n + v0) * p;
   for (int i = threadIdx.x; i < nv * p; i += blockDim.x) sx[i] = xd[i];
   __syncthreads();
@@ -62,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) fire_block_kernel(
     const int j = pair - v * q;
     int t = t_cap;  // neurons at or past q_active stay silent
     if (static_cast<float>(j) < q_live)
-      t = min(tnn::warp_fire_time(swi, q, j, sx + v * p, p, threshold, t_end),
+      t = min(tnn::warp_fire_time(wi, q, j, sx + v * p, p, threshold, t_end),
               t_cap);
     if (threadIdx.x % tnn::kWarp == 0) out[v * q + j] = static_cast<float>(t);
   }
@@ -70,26 +85,36 @@ __global__ void __launch_bounds__(kThreads) fire_block_kernel(
 
 }  // namespace
 
-extern "C" size_t tnn_fire_block_smem_bytes(int p, int q) {
-  return (static_cast<size_t>(p) * q + static_cast<size_t>(kTile) * p) *
-         sizeof(float);
+extern "C" size_t tnn_fire_block_smem_bytes(int p, int q, int resident) {
+  const size_t grid_words = resident ? static_cast<size_t>(p) * q : 0;
+  return (grid_words + static_cast<size_t>(kTile) * p) * sizeof(float);
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
+// `grid` is the device-memory layout's [D, p, q] workspace, ignored when
+// resident.
 extern "C" int tnn_fire_block(const void* operands, const void* xs,
-                              const void* w, void* t_fire, int d, int n,
-                              int p, int q, int t_window, int w_max,
-                              void* stream) {
-  const size_t smem = tnn_fire_block_smem_bytes(p, q);
+                              const void* w, void* grid, int resident,
+                              void* t_fire, int d, int n, int p, int q,
+                              int t_window, int w_max, void* stream) {
+  const size_t smem = tnn_fire_block_smem_bytes(p, q, resident);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = resident ? fire_block_kernel<true> : fire_block_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fire_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kTile - 1) / kTile, d);
-  fire_block_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (!resident) {
+    err = tnn::launch_fire_grid(
+        static_cast<const float*>(w), static_cast<float*>(grid),
+        static_cast<size_t>(d) * p * q, static_cast<float>(w_max), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 blocks((n + kTile - 1) / kTile, d);
+  kernel<<<blocks, kThreads, smem, st>>>(
       static_cast<const float*>(operands), static_cast<const float*>(xs),
-      static_cast<const float*>(w), static_cast<float*>(t_fire), n, p, q,
-      t_window, static_cast<float>(w_max));
+      static_cast<const float*>(w), static_cast<const float*>(grid),
+      static_cast<float*>(t_fire), n, p, q, t_window,
+      static_cast<float>(w_max));
   return static_cast<int>(cudaGetLastError());
 }

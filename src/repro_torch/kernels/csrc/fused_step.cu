@@ -12,13 +12,20 @@
 // on chip: one thread block per design holds that design's weights, their
 // rounded fire grid and the volley in shared memory for the whole step,
 // so the weights are read from device memory once and written once.
+// A design too wide for that (2pq + p + 2q words over 227 KB) takes the
+// device-memory layout: the weights live in w_out and their grid in a
+// workspace the wrapper allocates, both read through L2, while the volley,
+// the winner times and the firing times stay in shared memory.  The fire,
+// WTA and STDP code is the same in both layouts.
 // Folding many volleys into one launch, which is what would remove the
 // launch cost, is the port of _fused_block_kernel.
 //
 // Layout: w, w_out [D, p, q] f32; t_in [D, p] f32 (a time >= the design's
 // t_max is silent); operands [D, 6] f32 in the column order of
 // fused_column.OPERAND_COLS (threshold, t_max, q_active, mu_capture,
-// mu_backoff, mu_search); y_out [D, q] f32 winner times (t_max = none).
+// mu_backoff, mu_search); y_out [D, q] f32 winner times (t_max = none);
+// grid [D, p, q] f32 workspace of the device-memory layout (unused when
+// resident).
 #include <cuda_runtime.h>
 
 #include "tnn_column.cuh"
@@ -27,19 +34,23 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(
     const float* __restrict__ w, const float* __restrict__ t_in,
     const float* __restrict__ operands, float* __restrict__ w_out,
-    float* __restrict__ y_out, int p, int q, int t_window, float w_max,
-    int wta_k, bool stabilize, float eps) {
+    float* __restrict__ y_out, float* __restrict__ grid, int p, int q,
+    int t_window, float w_max, int wta_k, bool stabilize, float eps) {
   extern __shared__ float smem[];
-  float* sw = smem;             // [p * q] resident weights
-  float* swi = sw + p * q;      // [p * q] integer fire grid
-  float* sti = swi + p * q;     // [p] volley
-  float* sy = sti + p;          // [q] winner times
+  const int d = blockIdx.x;
+  const int n = p * q;
+  // [p * q] weights and [p * q] their integer fire grid: in shared memory
+  // when resident, else in w_out and the workspace
+  float* sw = kResident ? smem : w_out + static_cast<size_t>(d) * n;
+  float* swi = kResident ? smem + n : grid + static_cast<size_t>(d) * n;
+  float* sti = kResident ? smem + 2 * n : smem;  // [p] volley
+  float* sy = sti + p;                           // [q] winner times
   int* st_fire = reinterpret_cast<int*>(sy + q);  // [q] firing times
 
-  const int d = blockIdx.x;
   const float* op = operands + d * 6;
   const float threshold = op[0];
   const float t_max = op[1];
@@ -47,7 +58,6 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
   const float mu_capture = op[3];
   const float mu_backoff = op[4];
   const float mu_search = op[5];
-  const int n = p * q;
   const float* wd = w + static_cast<size_t>(d) * n;
 
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
@@ -57,7 +67,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
   }
   for (int i = threadIdx.x; i < p; i += blockDim.x)
     sti[i] = t_in[static_cast<size_t>(d) * p + i];
-  __syncthreads();
+  __syncthreads();  // orders the block's own global writes as well
 
   // fire: one warp per neuron, cycles [0, min(t_max, t_window)) counted;
   // neurons at or past q_active are silent
@@ -76,7 +86,9 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
     tnn::warp_wta(st_fire, q, static_cast<int>(t_max), wta_k, sy);
   __syncthreads();
 
-  // STDP: one thread per synapse; neurons at or past q_active keep w
+  // STDP: one thread per synapse; neurons at or past q_active keep w.
+  // Each thread reads and writes only its own synapses, so the in-place
+  // update of the device-memory layout needs no further ordering.
   float* wo = w_out + static_cast<size_t>(d) * n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const int i = k / q;
@@ -93,26 +105,28 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
 
 }  // namespace
 
-extern "C" size_t tnn_fused_step_smem_bytes(int p, int q) {
-  return (2 * static_cast<size_t>(p) * q + p + q) * sizeof(float) +
-         q * sizeof(int);
+extern "C" size_t tnn_fused_step_smem_bytes(int p, int q, int resident) {
+  const size_t grid_words = resident ? 2 * static_cast<size_t>(p) * q : 0;
+  return (grid_words + p + q) * sizeof(float) + q * sizeof(int);
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
+// `grid` is the device-memory layout's workspace, ignored when resident.
 extern "C" int tnn_fused_step(const void* w, const void* t_in,
                               const void* operands, void* w_out, void* y_out,
-                              int d, int p, int q, int t_window, int w_max,
-                              int wta_k, int stabilize, float eps,
-                              void* stream) {
-  const size_t smem = tnn_fused_step_smem_bytes(p, q);
+                              void* grid, int resident, int d, int p, int q,
+                              int t_window, int w_max, int wta_k,
+                              int stabilize, float eps, void* stream) {
+  const size_t smem = tnn_fused_step_smem_bytes(p, q, resident);
+  auto kernel = resident ? fused_step_kernel<true> : fused_step_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_step_kernel<<<d, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<d, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<const float*>(t_in),
       static_cast<const float*>(operands), static_cast<float*>(w_out),
-      static_cast<float*>(y_out), p, q, t_window, static_cast<float>(w_max),
-      wta_k, stabilize != 0, eps);
+      static_cast<float*>(y_out), static_cast<float*>(grid), p, q, t_window,
+      static_cast<float>(w_max), wta_k, stabilize != 0, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,13 +47,6 @@ __global__ void __launch_bounds__(kThreads) stdp_update_kernel(
 
 }  // namespace
 
-// No shared memory: the common _smem_bytes entry point reports 0.
-extern "C" size_t tnn_stdp_update_smem_bytes(int p, int q) {
-  (void)p;
-  (void)q;
-  return 0;
-}
-
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int tnn_stdp_update(const void* w, const void* x, const void* y,
                                void* w_out, int p, int q, float t_max,

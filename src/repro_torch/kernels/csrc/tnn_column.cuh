@@ -36,6 +36,27 @@ __device__ __forceinline__ float fire_grid(float w, float w_max) {
   return rintf(fminf(fmaxf(w, 0.0f), w_max));
 }
 
+// The device-memory layout of the fire kernels: rounds n weights once
+// into the grid workspace that every thread block then reads through L2.
+__global__ void fire_grid_kernel(const float* __restrict__ w,
+                                 float* __restrict__ grid, size_t n,
+                                 float w_max) {
+  for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       k < n; k += static_cast<size_t>(gridDim.x) * blockDim.x)
+    grid[k] = fire_grid(w[k], w_max);
+}
+
+// Launches fire_grid_kernel on `stream`; returns cudaGetLastError().
+inline cudaError_t launch_fire_grid(const float* w, float* grid, size_t n,
+                                    float w_max, cudaStream_t stream) {
+  size_t blocks = (n + 255) / 256;
+  if (blocks > 1024) blocks = 1024;
+  if (blocks == 0) return cudaSuccess;
+  fire_grid_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      w, grid, n, w_max);
+  return cudaGetLastError();
+}
+
 // Sum over the warp; every lane returns lane 0's total, so all lanes take
 // the same branch on it.
 __device__ __forceinline__ float warp_sum(float v) {

@@ -279,7 +279,8 @@ def fused_step_padded(
       (w_new [D, p, q], y [D, q] f32 post-WTA winner times).
 
     CPU tensors take ``fused_step_padded_plain``; CUDA tensors launch the
-    kernel (or raise).
+    kernel (or raise), in its device-memory layout where the weights and
+    their grid do not fit in shared memory beside the volley.
     """
     tensors = (w, t_in, operands)
     if all(t.device.type == "cpu" for t in tensors):
@@ -300,19 +301,20 @@ def fused_step_padded(
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
     k = build.FUSED_STEP
-    k.check_smem(f"a {p} x {q} envelope", p, q)
+    resident = k.resident(f"a {p} x {q} envelope", p, q)
     w_out = torch.empty_like(w)
     y = torch.empty((d, q), dtype=torch.float32, device=w.device)
     if d == 0:
         return w_out, y
+    grid = build.grid_workspace(w, resident)
     fn = k.function()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
         rc = fn(w.data_ptr(), t_in.data_ptr(), operands.data_ptr(),
-                w_out.data_ptr(), y.data_ptr(), d, p, q, int(t_window),
-                int(w_max), int(wta_k), int(bool(stabilize)), _eps(w_max),
-                stream)
+                w_out.data_ptr(), y.data_ptr(), build.ptr(grid), int(resident),
+                d, p, q, int(t_window), int(w_max), int(wta_k),
+                int(bool(stabilize)), _eps(w_max), stream)
     build.check_launch(k, rc)
     return w_out, y
 
@@ -468,9 +470,10 @@ def fused_block_padded(
     Returns w_new [D, p, q] after the block's sequential online updates.
     CPU tensors take ``fused_block_padded_plain``; CUDA tensors launch the
     kernel (or raise), once per block, or once per sub-block where the
-    block's volleys do not fit in shared memory beside the weights
-    (``block_sub_launches``).  Only an envelope whose single volley does
-    not fit (2pq + p + 2q words over 227 KB, ~29 K synapses) is refused.
+    block's volleys do not fit in shared memory (``block_sub_launches``).
+    An envelope whose weights and grid do not fit in shared memory beside
+    one volley (2pq + p + 2q words over 227 KB, ~29 K synapses) runs in the
+    kernel's device-memory layout.
     """
     kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
     tensors = (w, t_in, operands)
@@ -495,9 +498,10 @@ def fused_block_padded(
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
     k = build.FUSED_BLOCK
-    k.check_smem(f"one volley of a {p} x {q} envelope", p, q, 1)
+    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1)
     if d == 0:
         return torch.empty_like(w)
+    grid = build.grid_workspace(w, resident)
     fn = k.function()
     for start, v, nv in block_sub_launches(p, q, v_blk, n_valid):
         sub = t_in if v == v_blk else t_in[:, start : start + v].contiguous()
@@ -506,9 +510,9 @@ def fused_block_padded(
             stream = torch.cuda.current_stream(w.device).cuda_stream
             k.launches += 1
             rc = fn(w.data_ptr(), sub.data_ptr(), operands.data_ptr(),
-                    w_out.data_ptr(), d, p, q, v, nv, int(t_window),
-                    int(w_max), int(wta_k), int(bool(stabilize)),
-                    _eps(w_max), stream)
+                    w_out.data_ptr(), build.ptr(grid), int(resident), d, p, q, v,
+                    nv, int(t_window), int(w_max), int(wta_k),
+                    int(bool(stabilize)), _eps(w_max), stream)
         build.check_launch(k, rc)
         w = w_out
     return w
@@ -522,15 +526,19 @@ def block_sub_launches(
     per launch.
 
     One launch takes the whole block when its volleys fit in a thread
-    block's shared memory beside the weights.  Otherwise the block's
-    first ``n_valid`` volleys fold as consecutive launches of the largest
-    sub-block that fits (the kernel's own ``_smem_bytes`` decides), in
-    order; volleys fold in order either way, so the result is the same
-    function of the inputs.
+    block's shared memory in the layout the wrapper picks (beside the
+    weights where one volley fits so, else beside the firing times alone).
+    Otherwise the block's first ``n_valid`` volleys fold as consecutive
+    launches of the largest sub-block that fits (the kernel's own
+    ``_smem_bytes`` decides), in order; volleys fold in order either way,
+    so the result is the same function of the inputs.
     """
     k = build.FUSED_BLOCK
+    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1)
     v_fit = v_blk
-    while v_fit > 1 and k.smem_bytes(p, q, v_fit) > build.MAX_SMEM_BYTES:
+    while v_fit > 1 and k.smem_bytes(
+        p, q, v_fit, resident=resident
+    ) > build.MAX_SMEM_BYTES:
         v_fit -= 1
     if v_fit >= v_blk:
         return [(0, v_blk, int(n_valid))]
@@ -684,7 +692,8 @@ def fire_block_padded(
 
     Returns t_fire [D, N, q] f32, clamped to t_max, neurons at or past
     q_active at t_max.  CPU tensors take ``fire_block_padded_plain``;
-    CUDA tensors launch the kernel (or raise).
+    CUDA tensors launch the kernel (or raise), in its device-memory layout
+    where the grid does not fit in shared memory beside a tile of volleys.
     """
     tensors = (w, xs, operands)
     if all(t.device.type == "cpu" for t in tensors):
@@ -707,17 +716,18 @@ def fire_block_padded(
             f"{tuple(operands.shape)}"
         )
     k = build.FIRE_BLOCK
-    k.check_smem(f"a {p} x {q} envelope", p, q)
+    resident = k.resident(f"a {p} x {q} envelope", p, q)
     t_fire = torch.empty((d, n, q), dtype=torch.float32, device=w.device)
     if d == 0 or n == 0:
         return t_fire
+    grid = build.grid_workspace(w, resident)
     fn = k.function()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
-        rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(),
-                t_fire.data_ptr(), d, n, p, q, int(t_window), int(w_max),
-                stream)
+        rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(), build.ptr(grid),
+                int(resident), t_fire.data_ptr(), d, n, p, q, int(t_window),
+                int(w_max), stream)
     build.check_launch(k, rc)
     return t_fire
 

@@ -48,7 +48,9 @@ def rnl_fire(
     """Firing times of integer-grid RNL neurons.  [B, p], [p, q] -> [B, q].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise).  ``t_in`` is int32 or float32, ``w`` float32.
+    (or raise).  ``t_in`` is int32 or float32, ``w`` float32.  A column
+    whose grid does not fit in shared memory beside a tile of volleys runs
+    in the kernel's device-memory layout.
     """
     if t_in.device.type == "cpu" and w.device.type == "cpu":
         return rnl_fire_plain(t_in, w, threshold, t_max, w_max)
@@ -73,15 +75,17 @@ def rnl_fire(
     q = w.shape[1]
     ti = t_in.to(torch.float32).contiguous()
     k = build.RNL_FIRE
-    k.check_smem(f"a {p} x {q} column", p, q)
+    resident = k.resident(f"a {p} x {q} column", p, q)
     out = torch.empty((b, q), dtype=TIME_DTYPE, device=w.device)
     if b == 0 or q == 0:
         return out
+    grid = build.grid_workspace(w, resident)
     fn = k.function()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
-        rc = fn(ti.data_ptr(), w.data_ptr(), out.data_ptr(), b, p, q,
-                float(threshold), int(t_max), int(w_max), stream)
+        rc = fn(ti.data_ptr(), w.data_ptr(), build.ptr(grid), int(resident),
+                out.data_ptr(), b, p, q, float(threshold), int(t_max),
+                int(w_max), stream)
     build.check_launch(k, rc)
     return out

@@ -114,11 +114,13 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         fused_column.fused_step_padded(w.double(), t, ops, **kw)
     with pytest.raises(ValueError):
         fused_column.fused_step_padded(w, t.cpu(), ops, **kw)
-    with pytest.raises(ValueError):  # 227 KB of shared memory is the limit
-        big = torch.zeros((1, 4000, 8), device=cuda_device)
-        fused_column.fused_step_padded(
-            big, torch.zeros((1, 4000), device=cuda_device), ops, **kw
-        )
+    # 4000 x 8 does not fit in shared memory: the device-memory layout
+    wb, tb, ob = _fused_case(1, 4000, 8, 64, seed=4000, hetero=False)
+    bkw = dict(kw, t_window=64)
+    w_ref, y_ref = fused_column.fused_step_padded_plain(wb, tb, ob, **bkw)
+    w_k, y_k = fused_column.fused_step_padded(
+        wb.to(cuda_device), tb.to(cuda_device), ob.to(cuda_device), **bkw)
+    assert torch.equal(y_k.cpu(), y_ref) and torch.equal(w_k.cpu(), w_ref)
     with pytest.raises(ValueError):
         rnl_response.rnl_fire(t, w[0].double(), 1.0, 8, 7)
     rnl_response.rnl_fire(t, w[0], 1.0, 8, 7)  # the same call, well formed
@@ -239,20 +241,26 @@ def test_block_wrappers_refuse_bad_operands(cuda_device):
         fused_column.fused_block_padded(w, t.cpu(), ops, 4, **kw)
     with pytest.raises(ValueError):
         fused_column.fused_block_padded(w, t[:, :, :7], ops, 4, **kw)
-    with pytest.raises(ValueError):  # 227 KB of shared memory is the limit
-        fused_column.fused_block_padded(
-            torch.zeros((1, 600, 48), device=cuda_device),
-            torch.zeros((1, 4, 600), device=cuda_device), ops, 4, **kw)
+    # 600 x 48 does not fit in shared memory: the device-memory layout
+    wb, tb, ob = _block_case(1, 600, 48, 4, seed=600)
+    bkw = dict(kw, t_window=64)
+    ref = fused_column.fused_block_padded_plain(wb, tb, ob, 4, **bkw)
+    got = fused_column.fused_block_padded(
+        wb.to(cuda_device), tb.to(cuda_device), ob.to(cuda_device), 4, **bkw)
+    assert torch.equal(got.cpu(), ref)
     fused_column.fused_block_padded(w, t, ops, 4, **kw)  # well formed
     fkw = dict(t_window=8, w_max=7)
     with pytest.raises(ValueError):
         fused_column.fire_block_padded(w, t.transpose(1, 2), ops, **fkw)
     with pytest.raises(ValueError):
         fused_column.fire_block_padded(w, t.to(torch.int32), ops, **fkw)
-    with pytest.raises(ValueError):
-        fused_column.fire_block_padded(
-            torch.zeros((1, 300, 200), device=cuda_device),
-            torch.zeros((1, 4, 300), device=cuda_device), ops, **fkw)
+    # 300 x 200 does not fit in shared memory: the device-memory layout
+    wb, tb, ob = _block_case(1, 300, 200, 4, seed=300)
+    ref = fused_column.fire_block_padded_plain(wb, tb, ob, t_window=64, w_max=7)
+    got = fused_column.fire_block_padded(
+        wb.to(cuda_device), tb.to(cuda_device), ob.to(cuda_device),
+        t_window=64, w_max=7)
+    assert torch.equal(got.cpu(), ref)
     fused_column.fire_block_padded(w, t, ops, **fkw)
 
 
@@ -267,6 +275,8 @@ def test_fused_block_folds_an_oversized_block_as_sub_launches(cuda_device):
     per_volley = 4 * p
     fixed = (2 * p * q + q) * 4 + 4 * q  # tnn_fused_block_smem_bytes at v_blk 0
     assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk) == fixed + v_blk * per_volley
+    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk, resident=False) == (
+        fixed - 8 * p * q + v_blk * per_volley)
     v_fit = (build.MAX_SMEM_BYTES - fixed) // per_volley
     assert v_fit == 7
     ref = fused_column.fused_block_padded_plain(w, t_in, ops_, n_valid, **kw)
@@ -277,6 +287,52 @@ def test_fused_block_folds_an_oversized_block_as_sub_launches(cuda_device):
     torch.cuda.synchronize()
     assert build.FUSED_BLOCK.launches == before + -(-n_valid // v_fit) == before + 5
     assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+
+# ------------------------------------- the device-memory layout
+# (p, q): too wide for shared memory in the resident layout; at 637 x 50
+# only fused_step and fused_block are, the fire kernels stay resident
+LAYOUT_SHAPES = [(650, 130), (4000, 8), (637, 50)]
+
+
+@pytest.mark.parametrize("p,q", LAYOUT_SHAPES)
+def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
+    """All four fire kernels at widths whose weights do not fit in shared
+    memory: bit-equal to their plain versions, one launch each."""
+    resident = {k.name: k.resident("", p, q) for k in (
+        build.FUSED_STEP, build.RNL_FIRE, build.FIRE_BLOCK)}
+    resident["fused_block"] = build.FUSED_BLOCK.resident("", p, q, 1)
+    assert not resident["fused_step"] and not resident["fused_block"]
+    assert resident["rnl_fire"] == resident["fire_block"] == ((p, q) == (637, 50))
+
+    w, t_in, ops_ = _fused_case(2, p, q, 64, seed=p + q, hetero=True)
+    kw = dict(t_window=64, w_max=7, wta_k=2, stabilize=True)
+    w_ref, y_ref = fused_column.fused_step_padded_plain(w, t_in, ops_, **kw)
+    w_k, y_k = fused_column.fused_step_padded(
+        w.to(cuda_device), t_in.to(cuda_device), ops_.to(cuda_device), **kw)
+    assert torch.equal(y_k.cpu(), y_ref) and torch.equal(w_k.cpu(), w_ref)
+
+    w, blk, ops_ = _block_case(2, p, q, 32, seed=p * q)
+    ref = fused_column.fused_block_padded_plain(w, blk, ops_, 20, **kw)
+    before = build.FUSED_BLOCK.launches
+    got = fused_column.fused_block_padded(
+        w.to(cuda_device), blk.to(cuda_device), ops_.to(cuda_device), 20, **kw)
+    torch.cuda.synchronize()
+    assert build.FUSED_BLOCK.launches - before == len(
+        fused_column.block_sub_launches(p, q, 32, 20))
+    assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+    ref = fused_column.fire_block_padded_plain(w, blk, ops_, t_window=64, w_max=7)
+    got = fused_column.fire_block_padded(
+        w.to(cuda_device), blk.to(cuda_device), ops_.to(cuda_device),
+        t_window=64, w_max=7)
+    assert torch.equal(got.cpu(), ref)
+
+    t_b = blk[0].to(torch.int32)
+    thr = 0.25 * p * 3.5
+    ref = rnl_response.rnl_fire_plain(t_b, w[0], thr, 64, 7)
+    got = rnl_response.rnl_fire(t_b.to(cuda_device), w[0].to(cuda_device), thr, 64, 7)
+    assert torch.equal(got.cpu(), ref)
 
 
 STDP_SHAPES = [(13, 3), (270, 25), (650, 130), (7, 1), (540, 50)]
@@ -335,3 +391,96 @@ def test_ops_entry_points_on_card_match_cpu(cuda_device):
         before[0] + 30, before[1] + 30)
     assert torch.equal(fused.cpu(), fused_cpu)
     assert torch.equal(w.cpu(), fused_cpu)
+
+
+# --------------------------------------------------- flash attention
+def _flash_inputs(b, sq, hq, hkv, d, skv=None, seed=0):
+    rng = np.random.default_rng(seed)
+    skv = sq if skv is None else skv
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in (
+        (b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,skv", [
+    # the JAX package's test shapes, with grouped KV heads
+    (2, 256, 4, 2, 64, True, None),
+    (1, 128, 2, 1, 32, False, None),
+    (2, 384, 3, 1, 128, True, None),
+    (1, 512, 1, 1, 64, True, None),
+    # ragged lengths (tails of the 64-row tiles), non-causal, MHA, d 16
+    (2, 1000, 8, 2, 128, True, None),
+    (1, 1000, 4, 4, 64, False, None),
+    (1, 77, 4, 1, 16, False, 130),
+    (3, 70, 2, 2, 16, True, None),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, hq, hkv, d, causal, skv):
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = _flash_inputs(b, sq, hq, hkv, d, skv, seed=sq + d)
+    ref = flash_lib.flash_attention_plain(q, k, v, causal)  # on the CPU
+    before = build.FLASH_ATTENTION.launches
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got.cpu(), ref) < 2e-5
+    # bf16 in and out, the JAX package's bf16 tolerance
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    ref = flash_lib.flash_attention_plain(qb, kb, vb, causal)
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (qb, kb, vb)), causal)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got.cpu(), ref) < 2e-2
+    # per element, against the plain version in f32 on the same bf16 values:
+    # one rounding to bf16 plus 1e-5 of the largest output
+    ref32 = flash_lib.flash_attention_plain(qb.float(), kb.float(), vb.float(), causal)
+    bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+    assert bool(((got.cpu().float() - ref32).abs() <= bound).all())
+
+
+def test_flash_attention_refuses_bad_operands(cuda_device):
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = (t.to(cuda_device) for t in _flash_inputs(1, 64, 4, 2, 64))
+    with pytest.raises(ValueError):
+        flash_lib.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        flash_lib.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):  # Hkv must divide Hq
+        flash_lib.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError):  # a head dim the kernel has no build of
+        flash_lib.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                  v[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        flash_lib.flash_attention(q.transpose(1, 2), k, v)
+    flash_lib.flash_attention(q, k, v)  # well formed
+
+
+def test_smoke_lm_on_card_matches_cpu(cuda_device):
+    """The granite smoke model (f32, d_head 16): card logits (flash
+    kernel) against CPU logits (plain version) from the same weights,
+    prefill then two decode steps; one flash launch per layer per
+    prefill."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch("granite-3-8b", smoke=True)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = T.params_from_jax(T.params_to_numpy(cpu), cfg, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        c_cpu, l_cpu = T.prefill(cpu, toks[:, :19], max_len=24)
+        before = build.FLASH_ATTENTION.launches
+        c_card, l_card = T.prefill(card, toks[:, :19].to(cuda_device), max_len=24)
+        assert build.FLASH_ATTENTION.launches == before + cfg.n_layers
+        assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        for t in (19, 20):
+            c_cpu, l_cpu = T.decode_step(cpu, c_cpu, toks[:, t : t + 1])
+            c_card, l_card = T.decode_step(card, c_card, toks[:, t : t + 1].to(cuda_device))
+            assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        full = T.forward(card, toks.to(cuda_device))
+        assert _rel(full.cpu(), T.forward(cpu, toks)) < 1e-4

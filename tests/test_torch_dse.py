@@ -303,9 +303,9 @@ def test_step_monitor_and_rebalance_policy_identical():
 
 
 # ------------------------------------------- the volley block's split
-def _smem(p, q, v_blk):
+def _smem(p, q, v_blk, resident=True):
     # csrc/fused_block.cu: tnn_fused_block_smem_bytes
-    return (2 * p * q + v_blk * p + q) * 4 + 4 * q
+    return (2 * p * q * resident + v_blk * p + q) * 4 + 4 * q
 
 
 def test_block_sub_launches_split_only_what_does_not_fit(monkeypatch):
@@ -329,7 +329,7 @@ def test_sub_block_fold_equals_the_whole_block(monkeypatch):
     (plain versions, at a width where the plan splits)."""
     # a card on which only 4 volleys fit beside the weights
     monkeypatch.setattr(build.FUSED_BLOCK, "smem_bytes",
-                        lambda p, q, v: build.MAX_SMEM_BYTES + (v > 4))
+                        lambda p, q, v, resident=True: build.MAX_SMEM_BYTES + (v > 4))
     rng = np.random.default_rng(0)
     d, p, q, v_blk, n_valid = 3, 24, 6, 12, 10
     plan = fused_column.block_sub_launches(p, q, v_blk, n_valid)
