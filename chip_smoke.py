@@ -16,13 +16,15 @@ JAX or the JAX package.  Phases, each of which asserts:
 3. the RNL-fire kernel against its plain version (B = 905 at 270 x 25,
    B = 121 at 637 x 2, B = 121 at 650 x 130 in the device-memory
    layout): equal;
-4. the volley-block kernel against its plain version (D = 1 and D = 4
-   heterogeneous envelopes, v_blk 1, 7 and 32 with tails, wta_k 1 and 2,
-   stabilizer on and off, a threshold-0 design with a tail, D = 2 at
-   650 x 130 in the device-memory layout; and a D = 12 block of the
-   on/off 540 x 50 envelope at v_blk 32, which the wrapper folds as
-   sub-launches of the 7 volleys that fit in shared memory): weights
-   bit-equal, sub-launches as computed;
+4. the volley-block kernel (its fire the integer slope histogram)
+   against its plain version (D = 1 and D = 4 heterogeneous envelopes,
+   v_blk 1, 7 and 32 with tails, wta_k 1 and 2, stabilizer on and off, a
+   threshold-0 design with a tail, D = 2 at 650 x 130 in the
+   device-memory layout; a D = 12 block of the on/off 540 x 50 envelope
+   at v_blk 32, and a D = 4 block of a 1000 x 40 envelope, which the
+   wrapper folds as sub-launches of the volleys that fit in shared
+   memory): weights bit-equal, sub-launches as computed from the
+   kernel's shared-memory formula;
 5. the batched-fire kernel against its plain version (D = 4
    heterogeneous, N = 905 at 270 x 50 and 637 x 2, N = 121 at 650 x 130
    in the device-memory layout): times and ids equal;
@@ -62,19 +64,22 @@ JAX or the JAX package.  Phases, each of which asserts:
 12. the hardware generator (host only): the chosen design through
     ``hwgen.run_flow`` to TNN7 post-layout metrics, and the seven
     Table II ``hardware_spec`` flows;
-13. the sweep that needed the device-memory layout, launch counters read
-    around it: ``simulator.cluster_time_series_many`` over the Lightning2
-    synthetic double (p 637, full N) at q 25 and 50 x two thresholds, 2
-    epochs, ``on_error='raise'`` (a volley of the 637 x 50 envelope needs
-    257,748 B of shared memory beside the weights); then on the CPU from
-    the same initial weights: nothing quarantined, equal ids, Rand index
-    and weights;
+13. the Lightning2 sweep, launch counters read around it:
+    ``simulator.cluster_time_series_many`` over the Lightning2 synthetic
+    double (p 637, full N) at q 25 and 50 x two thresholds, 2 epochs,
+    ``on_error='raise'``, in the layout the kernel's shared-memory formula
+    gives the 637 x 50 envelope (resident: 143,348 B beside the weights);
+    then on the CPU from the same initial weights: nothing quarantined,
+    equal ids, Rand index and weights;
 14. the flash-attention kernel against its plain version on the card
     (f32 at the JAX package's test shapes, < 2e-5 of the largest output;
-    the granite-3-8b prefill shape in bf16, < 2e-2, and in f32, < 2e-5;
-    a ragged S = 1000, a non-causal and an MHA case); each case also per
-    element against the plain version in f32 on the same values, within
-    one rounding to its dtype plus 1e-5 of the largest output;
+    the granite-3-8b prefill shape in bf16 (the tensor-core kernel),
+    < 2e-2, and in f32 (the CUDA-core kernel), < 2e-5; a ragged S = 1000,
+    a non-causal and an MHA case); each case also per element against the
+    plain version in f32 on the same values, within one rounding to its
+    dtype plus 1e-5 of the largest output; and, per element, bf16 at tile
+    edges where a consumer warpgroup has no rows or skips tiles (Sq 1
+    against Skv 1000, Sq 63, 65, 129, 1000, Skv != Sq);
 15. the LM slice at full width, 2 layers: granite-3-8b in f32, B 1, a
     100-token prompt and 4 decode steps, card logits (the kernel) against
     CPU logits (the plain version) from the same weights, < 1e-4 of the
@@ -90,13 +95,15 @@ JAX or the JAX package.  Phases, each of which asserts:
     device memory, prefill and decode times (then again, warm);
 17. timing at the paths' shapes with CUDA events, beside each kernel's
     bound on the card: the volley-block kernel on the default sweep's
-    first launch (D = 12 at 270 x 50, v_blk = 32), the batched fire on
-    each of the integer-grid sweep's launches (the kernels line sums
-    them), the STDP update on the ops path's first volley and at the
+    first launch (D = 12 at 270 x 50, v_blk = 32; bound by the slope
+    form's operations, the ramp sum's printed beside it), the batched
+    fire on each of the integer-grid sweep's launches (the kernels line
+    sums them), the STDP update on the ops path's first volley and at the
     phase 6 shapes, the four fire kernels at 650 x 130 in the
     device-memory layout, and the flash kernel at the granite prefill
     shape beside its plain version and PyTorch's
-    ``scaled_dot_product_attention``.
+    ``scaled_dot_product_attention`` (bound by the operations of its
+    split-P products, the two products' alone printed beside it).
 
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -266,7 +273,7 @@ def check_fused_block(fused_column, dev) -> float:
         worst = max(worst, dw)
         log(f"[fused_block] D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid} "
             f"k={k} stabilize={stab} threshold0={degenerate} max|dw|={dw} "
-            f"{layout_name(build.FUSED_BLOCK, p, q, 1)}")
+            f"{layout_name(build.FUSED_BLOCK, p, q, 1, t_window)}")
         assert torch.equal(got, ref), "fused_block: weights differ"
         if degenerate:
             unmasked = fused_column.fused_block_padded_plain(w, t_in, ops, v_blk, **kw)
@@ -400,11 +407,17 @@ def fire_bound(fused_column, w, xs, ops, kw) -> tuple[int, int]:
     return n_bytes, fire_ops(p, tf, ops[:, 1:2, None], live)
 
 
-def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int]:
+def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int, int]:
     """Bytes and operations of one volley-block launch on these inputs:
     the weights read and written once, the volleys and operands read
-    once; the fire's min+add pairs volley by volley on the weights each
-    volley sees, and ~10 operations per live synapse for its STDP."""
+    once.  Operations volley by volley on the weights each volley sees,
+    in the kernel's slope-histogram form: one add for each live synapse
+    whose ramp rises inside the window and one more where it tops out
+    there, two adds a cycle for each live neuron's scan up to its
+    crossing, and ~10 per live synapse for its STDP.  The third number is
+    the same work counted as the ramp sum that the other fire kernels
+    compute (min+add pairs of every synapse each cycle up to the
+    crossing, and the same STDP)."""
     import torch
 
     d, p, q = w.shape
@@ -412,47 +425,59 @@ def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int]:
     n_bytes = 4 * (2 * d * p * q + d * v_blk * p + d * 6)
     tm, qa = ops[:, 1:2, None], ops[:, 2:3, None]
     live = (torch.arange(q, device=w.device) < qa).long()
-    n_ops = 0
+    t_end = torch.clamp(torch.ceil(tm), max=float(kw["t_window"]))
+    n_ops = n_ramp = 0
     for vi in range(v_blk):
         one = blk[:, vi : vi + 1].contiguous()
         t = fused_column.fire_block_padded_plain(
             w, one, ops, t_window=kw["t_window"], w_max=kw["w_max"])
-        n_ops += fire_ops(p, t, tm, live) + 10 * p * int(live.sum())
+        stdp = 10 * p * int(live.sum())
+        g = torch.round(torch.clamp(w, 0.0, float(kw["w_max"])))
+        ti = one[:, 0, :, None]
+        up = (ti >= 0) & (ti < t_end) & (g > 0) & live.bool()
+        down = up & (ti + g < t_end)
+        n_ops += int(up.sum()) + int(down.sum()) + fire_ops(1, t, tm, live) + stdp
+        n_ramp += fire_ops(p, t, tm, live) + stdp
         w = fused_column.fused_block_padded_plain(w, one, ops, 1, **kw)
-    return n_bytes, n_ops
+    return n_bytes, n_ops, n_ramp
 
 
 def check_block_split(fused_column, build, dev) -> float:
-    """Phase 4, last case: a D = 12 block of the on/off 540 x 50 envelope
-    at v_blk 32 (285 KB of shared memory at one launch) folds as
-    sub-launches of the volleys that fit; bit-equal to the plain fold of
-    the whole block.  Returns the largest difference."""
+    """Phase 4, last cases: a D = 12 block of the on/off 540 x 50 envelope
+    and a D = 4 block of a 1000 x 40 envelope at v_blk 32, each launched
+    as the sub-blocks that fit in shared memory by the kernel's own
+    formula (one launch at 540 x 50, two at 1000 x 40), bit-equal to the
+    plain fold of the whole block.  Returns the largest difference."""
     import numpy as np
     import torch
 
-    d, p, q, v_blk, n_valid = 12, 540, 50, 32, 30
-    rng = np.random.default_rng(540)
-    w = torch.from_numpy(half_grid(rng, (d, p, q)))
-    t_in = torch.from_numpy(rng.integers(0, 72, (d, v_blk, p)).astype(np.float32))
-    ops = fused_column.design_operands(
-        rng.uniform(0.1, 0.4, d) * p * 3.5, rng.integers(32, 65, d),
-        rng.integers(25, q + 1, d), 0.5, 0.5, 1 / 1024)
-    kw = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
-    plan = fused_column.block_sub_launches(p, q, v_blk, n_valid)
-    one = build.FUSED_BLOCK.smem_bytes(p, q, v_blk)
-    ref = fused_column.fused_block_padded_plain(w, t_in, ops, n_valid, **kw)
-    before = build.FUSED_BLOCK.launches
-    got = fused_column.fused_block_padded(
-        w.to(dev), t_in.to(dev), ops.to(dev), n_valid, **kw).cpu()
-    launched = build.FUSED_BLOCK.launches - before
-    dw = float((got - ref).abs().max())
-    log(f"[fused_block] split D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid}: "
-        f"{one} B at one launch > {build.MAX_SMEM_BYTES}; sub-launches "
-        f"{[v for _, v, _ in plan]} launched={launched} max|dw|={dw}")
-    assert one > build.MAX_SMEM_BYTES
-    assert launched == len(plan) == 5, (launched, plan)
-    assert torch.equal(got, ref), "fused_block: the split block differs"
-    return dw
+    worst = 0.0
+    for d, p, q, v_blk, n_valid in ((12, 540, 50, 32, 30), (4, 1000, 40, 32, 30)):
+        rng = np.random.default_rng(p)
+        w = torch.from_numpy(half_grid(rng, (d, p, q)))
+        t_in = torch.from_numpy(rng.integers(0, 72, (d, v_blk, p)).astype(np.float32))
+        ops = fused_column.design_operands(
+            rng.uniform(0.1, 0.4, d) * p * 3.5, rng.integers(32, 65, d),
+            rng.integers(25, q + 1, d), 0.5, 0.5, 1 / 1024)
+        kw = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
+        plan = fused_column.block_sub_launches(p, q, v_blk, n_valid, 64)
+        one = build.FUSED_BLOCK.smem_bytes(p, q, v_blk, 64)
+        ref = fused_column.fused_block_padded_plain(w, t_in, ops, n_valid, **kw)
+        before = build.FUSED_BLOCK.launches
+        got = fused_column.fused_block_padded(
+            w.to(dev), t_in.to(dev), ops.to(dev), n_valid, **kw).cpu()
+        launched = build.FUSED_BLOCK.launches - before
+        dw = float((got - ref).abs().max())
+        worst = max(worst, dw)
+        v_fit = plan[0][1]
+        log(f"[fused_block] split D={d} {p}x{q} v_blk={v_blk} n_valid={n_valid}: "
+            f"{one} B at one launch (at most {build.MAX_SMEM_BYTES}); sub-launches "
+            f"{[v for _, v, _ in plan]} launched={launched} max|dw|={dw}")
+        assert (len(plan) > 1) == (one > build.MAX_SMEM_BYTES), plan
+        assert build.FUSED_BLOCK.smem_bytes(p, q, v_fit, 64) <= build.MAX_SMEM_BYTES
+        assert launched == len(plan) == -(-min(n_valid, v_blk) // v_fit), (launched, plan)
+        assert torch.equal(got, ref), "fused_block: the split block differs"
+    return worst
 
 
 def stdp_inputs(p, q, dtype, seed):
@@ -513,10 +538,10 @@ def rel_err(got, want) -> float:
 
 
 def repair_sweep(simulator, ColumnConfig, build, ucr, dev, card) -> None:
-    """Phase 13: the Lightning2 sweep at q 25 and 50 (a 637 x 50 envelope
-    whose volley does not fit in shared memory beside its weights) on the
-    card, launch counters read around it, then on the CPU from the same
-    initial weights."""
+    """Phase 13: the Lightning2 sweep at q 25 and 50 (a 637 x 50 envelope,
+    in the layout the kernel's formula gives it) on the card, launch
+    counters read around it, then on the CPU from the same initial
+    weights."""
     import numpy as np
     import torch
 
@@ -529,15 +554,16 @@ def repair_sweep(simulator, ColumnConfig, build, ucr, dev, card) -> None:
             cfgs.append(c.with_threshold(scale * simulator.suggest_threshold(c)))
     rng = np.random.default_rng(637)
     w_init = [rng.uniform(0, 7, (c.p, c.q)).astype(np.float32) for c in cfgs]
-    one = build.FUSED_BLOCK.smem_bytes(p, 50, 1)
-    assert one > build.MAX_SMEM_BYTES and not build.FUSED_BLOCK.resident("", p, 50, 1)
+    one = build.FUSED_BLOCK.smem_bytes(p, 50, 1, 64)
+    layout = layout_name(build.FUSED_BLOCK, p, 50, 1, 64)
+    assert build.FUSED_BLOCK.resident("", p, 50, 1, 64) == (one <= build.MAX_SMEM_BYTES)
     for k in build.KERNELS:
         k.launches = 0
     res = simulator.cluster_time_series_many(
         ds.x, ds.y, cfgs, epochs=2, w_init=w_init, on_error="raise", device=dev)
     launches = {k.name: k.launches for k in build.KERNELS}
     log(f"[repair] Lightning2 {p}x(25,50) N={n} 2 epochs: one volley needs {one} B "
-        f"beside the weights (> {build.MAX_SMEM_BYTES}); buckets={res[0].buckets} "
+        f"beside the weights ({layout}); buckets={res[0].buckets} "
         f"train_seconds={res[0].train_seconds!r} launches={launches} | {card}")
     assert launches["fused_block"] > 0, launches
     t0 = time.perf_counter()
@@ -568,12 +594,19 @@ FLASH_CASES = (
 )
 
 
-def flash_inputs(b, sq, hq, hkv, d, dtype, dev, seed=0):
+def flash_inputs(b, sq, hq, hkv, d, dtype, dev, seed=0, skv=None):
     import torch
 
+    skv = sq if skv is None else skv
     g = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device=dev).to(dtype) for shape in (
-        (b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d)))
+        (b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+# (Sq, Skv, causal) in bf16 at B 2, Hq 8, Hkv 2, d 64: tile edges where a
+# consumer warpgroup of the tensor-core kernel has no rows or skips tiles
+FLASH_EDGES = ((1, 1000, False), (63, 63, True), (129, 63, True),
+               (65, 129, False), (1000, 1000, True))
 
 
 def check_flash(flash_lib, dev) -> float:
@@ -615,6 +648,18 @@ def check_flash(flash_lib, dev) -> float:
         assert err < tol, ("flash_attention differs from its plain version", err)
         assert ratio <= 1, ("flash_attention differs per element", ratio)
         del q, k, v, got, ref, ref32, bound
+    for sq, skv, causal in FLASH_EDGES:
+        q, k, v = flash_inputs(2, sq, 8, 2, 64, torch.bfloat16, dev, seed=sq + skv,
+                               skv=skv)
+        got = flash_lib.flash_attention(q, k, v, causal).float()
+        ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+        ratio = float(((got - ref32).abs() / bound).max())
+        worst = max(worst, float((got - ref32).abs().max()))
+        log(f"[flash] edge B=2 Sq={sq} Skv={skv} Hq=8 Hkv=2 d=64 causal={causal} "
+            f"bfloat16: per element against f32, largest |d| / (u|ref| + 1e-5 "
+            f"max|ref|)={ratio} (<= 1)")
+        assert ratio <= 1, ("flash_attention differs per element at an edge", sq, skv)
     return worst
 
 
@@ -793,12 +838,14 @@ def profile_serving(T, model, cfg, dev, card) -> dict:
     return out
 
 
-def flash_bound(b, sq, hq, hkv, d, elem_bytes) -> tuple[int, int]:
+def flash_bound(b, sq, hq, hkv, d, elem_bytes,
+                split: bool = False) -> tuple[int, int]:
     """Bytes and operations of one causal flash launch with Sq = Skv: Q,
     K, V read and O written once; QK and PV over the causal triangle,
-    2 d operations per (query, key) pair each."""
+    2 d operations per (query, key) pair each, and PV twice where P is
+    split into two bf16 parts (the bf16 kernel)."""
     n_bytes = elem_bytes * (2 * b * sq * hq * d + 2 * b * sq * hkv * d)
-    n_ops = 4 * d * (sq * (sq + 1) // 2) * b * hq
+    n_ops = (6 if split else 4) * d * (sq * (sq + 1) // 2) * b * hq
     return n_bytes, n_ops
 
 
@@ -834,7 +881,7 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
         ("fused_block", "D=2 v_blk=32",
          lambda: fused_column.fused_block_padded(w_d, blk_d, ops_d, 32, **kw_d),
          lambda: fused_column.fused_block_padded_plain(w_d, blk_d, ops_d, 32, **kw_d),
-         block_bound(fused_column, w_d, blk_d, ops_d, kw_d), 5),
+         block_bound(fused_column, w_d, blk_d, ops_d, kw_d)[:2], 5),
         ("fire_block", f"D=2 N={n_b}",
          lambda: fused_column.fire_block_padded(w_d, xs_d, ops_d, **fkw),
          lambda: fused_column.fire_block_padded_plain(w_d, xs_d, ops_d, **fkw),
@@ -871,12 +918,15 @@ def time_flash(flash_lib, timer, dev, card) -> tuple:
                      warmup=1)
     lib_ms = timer(sdpa, 20)
     err = rel_err(sdpa().transpose(1, 2), flash_lib.flash_attention(q, k, v, True))
-    n_bytes, n_ops = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2)
+    n_bytes, n_ops = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2, split=True)
     b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    two = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2)[1]
     log(f"[time] flash_attention B={LM_BATCH} S={LM_PROMPT} Hq=32 Hkv=8 d=128 bf16 "
         f"causal ms={ms!r} plain_ms={plain_ms!r} sdpa_ms={lib_ms!r} "
-        f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops at the bf16 peak); "
-        f"SDPA against the kernel, relative to the largest: {err} | {card}")
+        f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops of the split-P "
+        f"products at the bf16 peak; the two products alone {two} ops, "
+        f"{two / BF16_OPS_PER_S * 1e3!r} ms); SDPA against the kernel, relative "
+        f"to the largest: {err} | {card}")
     return ms, plain_ms, b_ms, by, lib_ms
 
 
@@ -1215,7 +1265,7 @@ def main() -> int:
     dse_s = time.perf_counter() - t0
     dse_launches = {k.name: k.launches for k in build.KERNELS}
     per_epoch = {
-        enc: sum(len(fused_column.block_sub_launches(p_env, 50, 32, nv))
+        enc: sum(len(fused_column.block_sub_launches(p_env, 50, 32, nv, 64))
                  for nv in n_valid_per_block(n_ws, 32))
         for enc, p_env in (("latency", 270), ("onoff", 540))
     }
@@ -1388,13 +1438,14 @@ def main() -> int:
     b_ms = timer(lambda: fused_column.fused_block_padded(w, blk, ops, 32, **kw), 20)
     b_plain = timer(lambda: fused_column.fused_block_padded_plain(
         w, blk, ops, 32, **kw), 3, warmup=1)
-    b_bytes, b_ops = block_bound(fused_column, w, blk, ops, kw)
+    b_bytes, b_ops, b_ramp = block_bound(fused_column, w, blk, ops, kw)
     rows["sweep"] = dict(
         block=(b_ms, b_plain, *bound_ms(b_bytes, b_ops), b_bytes, b_ops))
     log(f"[time] sweep D={w.shape[0]} {w.shape[1]}x{w.shape[2]} fused_block "
         f"v_blk=32 ms={b_ms!r} plain_ms={b_plain!r} "
         f"bound_ms={rows['sweep']['block'][2]!r} ({rows['sweep']['block'][3]}; "
-        f"{b_bytes} B, {b_ops} ops) | {card}")
+        f"{b_bytes} B, {b_ops} ops of the slope form; the ramp sum's {b_ramp} "
+        f"ops, {bound_ms(b_bytes, b_ramp)[0]!r} ms) | {card}")
     # the batched fire on each launch of the integer-grid sweep, on that
     # launch's own inputs; the kernels line sums the sweep's launches
     fire_sum = [0.0, 0.0, 0.0, 0.0, 0.0]  # ms, plain, bound, bytes-ms, ops-ms

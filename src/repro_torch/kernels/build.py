@@ -135,9 +135,9 @@ class CudaKernel:
 
     def resident(self, what: str, *dims: int) -> bool:
         """The layout a launch at these dimensions takes: True (the
-        design's weights and grid in shared memory) wherever that fits in
-        what a block may use on an H100, else False (weights and grid in
-        device memory).  Raises ValueError when neither fits."""
+        design's weights, and the fire kernels' integer grid, in shared
+        memory) wherever that fits in what a block may use on an H100, else
+        False (in device memory).  Raises ValueError when neither fits."""
         if self.smem_bytes(*dims) <= MAX_SMEM_BYTES:
             return True
         smem = self.smem_bytes(*dims, resident=False)
@@ -151,8 +151,8 @@ class CudaKernel:
 
 def grid_workspace(w: torch.Tensor, resident: bool) -> Optional[torch.Tensor]:
     """The integer fire grid's workspace of the device-memory layout (the
-    shape of ``w``); None when the kernel keeps the grid in shared
-    memory."""
+    shape of ``w``) of ``fused_step``, ``rnl_fire`` and ``fire_block``;
+    None when the kernel keeps the grid in shared memory."""
     return None if resident else torch.empty_like(w)
 
 
@@ -220,10 +220,10 @@ FUSED_BLOCK = CudaKernel(
     name="fused_block",
     source="fused_block.cu",
     symbol="tnn_fused_block",
-    argtypes=(_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
               _F, _P),
     replaces="src/repro/kernels/fused_column.py:596 _fused_block_kernel",
-    smem_argtypes=(_I, _I, _I, _I),
+    smem_argtypes=(_I, _I, _I, _I, _I),  # p, q, v_blk, t_window, resident
 )
 
 FIRE_BLOCK = CudaKernel(

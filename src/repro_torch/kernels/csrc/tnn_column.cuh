@@ -6,7 +6,9 @@
 // (src/repro/kernels/fused_column.py: _kernel_fire_counts, _kernel_wta,
 // _kernel_stdp).  The TPU helpers put the fire on the matrix unit through
 // one-hot weight planes; at the Table II widths (q <= 25) there is no
-// matrix to fill, so the fire is the direct ramp sum below.
+// matrix to fill, so the fire is the direct ramp sum below
+// (warp_fire_time), or its slope-histogram form (scatter_ramp,
+// warp_scan_fire_time), which needs no reduction per cycle.
 //
 // Numerics (held bit for bit against the plain PyTorch versions):
 //  * weights are rounded with rintf (half to even, as jnp.round and
@@ -83,6 +85,70 @@ __device__ __forceinline__ int warp_fire_time(
     if (warp_sum(part) >= threshold) return t;
   }
   return t_end;
+}
+
+// The slope-histogram form of the same fire, for integer spike times >= 0
+// and integer grid weights g.  Synapse i adds min(relu(t - t_i), g) to
+// V(t), which is the number of cycles s < t with t_i <= s < t_i + g; so
+// V(t) = sum_{s < t} c(s), where the slope c(s) counts the synapses whose
+// ramp is rising at s.  A neuron keeps c as a difference row (+1 at t_i,
+// -1 at t_i + g) of at least t_end ints in shared memory; every term is an
+// integer and every sum is at most p * w_max, so the result equals the
+// f32 ramp sum of warp_fire_time bit for bit, and int atomics make the
+// order of the scatter irrelevant.
+
+// Scatters one synapse into its neuron's difference row: nothing for a
+// time at or past t_end (silent inside the window), for g = 0, or for a
+// negative time (outside the form's contract, and outside the row), and
+// no -1 where the ramp tops out at or past t_end.
+__device__ __forceinline__ void scatter_ramp(int* row, float ti, float g,
+                                             int t_end) {
+  if (ti >= 0.0f && ti < static_cast<float>(t_end) && g > 0.0f) {
+    const int t0 = static_cast<int>(ti);
+    atomicAdd(row + t0, 1);
+    const int t1 = t0 + static_cast<int>(g);
+    if (t1 < t_end) atomicAdd(row + t1, -1);
+  }
+}
+
+// Inclusive prefix sum over the warp's lanes.
+__device__ __forceinline__ int warp_inclusive_scan(int x) {
+  const int lane = threadIdx.x % kWarp;
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+// Firing time of one neuron from its difference row, computed by one
+// whole warp: the first integer t < t_end with V(t) >= threshold, else
+// t_end (V(0) = 0, so a threshold <= 0 fires at 0).  32 cycles a step:
+// one scan gives the slopes, a second the potentials V(s + 1), and a
+// ballot the first crossing.  The warp leaves the row zeroed for the
+// next volley's scatter.
+__device__ __forceinline__ int warp_scan_fire_time(int* row, float threshold,
+                                                   int t_end) {
+  const int lane = threadIdx.x % kWarp;
+  int fire = 0.0f >= threshold ? 0 : t_end;
+  int slope = 0, v = 0;  // carried from the previous 32 cycles
+  for (int s0 = 0; s0 < t_end; s0 += kWarp) {
+    const int s = s0 + lane;
+    int x = 0;
+    if (s < t_end) {
+      x = row[s];
+      row[s] = 0;
+    }
+    if (fire < t_end) continue;  // found: only the zeroing is left
+    x = warp_inclusive_scan(x) + slope;  // c(s)
+    slope = __shfl_sync(0xffffffffu, x, kWarp - 1);
+    x = warp_inclusive_scan(x) + v;  // V(s + 1)
+    v = __shfl_sync(0xffffffffu, x, kWarp - 1);
+    const unsigned hit = __ballot_sync(
+        0xffffffffu, s + 1 < t_end && static_cast<float>(x) >= threshold);
+    if (hit) fire = s0 + __ffs(static_cast<int>(hit));  // = s + 1 of the first
+  }
+  return fire;
 }
 
 // k-WTA on q firing times, run by one warp (lanes stride over neurons).

@@ -12,10 +12,14 @@ head h reads KV head h // (Hq / Hkv), the grouping of
 ``layers._merge_gqa``), any Sq and Skv, and skips the key tiles past the
 causal diagonal.
 
-The plain version is the LM's own ``layers.chunked_attention`` on the
-grouped view.  In bf16 that rounds the probabilities to bf16 before the PV
-product, as the JAX model's attention does; the kernel keeps them in f32,
-as the TPU kernel does.
+The kernel has two instantiations behind one entry point: bf16 runs both
+products on the tensor cores (wgmma, with K and V tiles brought in by TMA),
+the scale applied after the product in f32 and the probabilities split into
+two bf16 parts for the PV product, so they keep about f32 accuracy, as the
+TPU kernel's f32 probabilities do; f32 runs both products in f32 on the
+CUDA cores.  The plain version is the LM's own ``layers.chunked_attention``
+on the grouped view.  In bf16 that rounds the probabilities to bf16 before
+the PV product, as the JAX model's attention does.
 """
 from __future__ import annotations
 

@@ -462,8 +462,9 @@ def fused_block_padded(
 
     Args:
       w: [D, p, q] f32 weights (pad rows/columns zero).
-      t_in: [D, v_blk, p] f32 volley block per design; a time >= that
-        design's runtime ``t_max`` is silent.
+      t_in: [D, v_blk, p] f32 volley block per design, integer times >= 0
+        (the kernel's slope-histogram fire is exact for those only); a
+        time >= that design's runtime ``t_max`` is silent.
       operands: [D, N_OPERANDS] f32 runtime design operands.
       n_valid: volleys of the block to fold; the rest fold nothing.
 
@@ -471,9 +472,10 @@ def fused_block_padded(
     CPU tensors take ``fused_block_padded_plain``; CUDA tensors launch the
     kernel (or raise), once per block, or once per sub-block where the
     block's volleys do not fit in shared memory (``block_sub_launches``).
-    An envelope whose weights and grid do not fit in shared memory beside
-    one volley (2pq + p + 2q words over 227 KB, ~29 K synapses) runs in the
-    kernel's device-memory layout.
+    An envelope whose weights do not fit in shared memory beside one
+    volley and the fire's histogram (pq + p + 2q words + q (t_window + 1)
+    ints over 227 KB, ~57 K synapses at t_window 64) runs in the kernel's
+    device-memory layout.
     """
     kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
     tensors = (w, t_in, operands)
@@ -498,20 +500,20 @@ def fused_block_padded(
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
     k = build.FUSED_BLOCK
-    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1)
+    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1,
+                          int(t_window))
     if d == 0:
         return torch.empty_like(w)
-    grid = build.grid_workspace(w, resident)
     fn = k.function()
-    for start, v, nv in block_sub_launches(p, q, v_blk, n_valid):
+    for start, v, nv in block_sub_launches(p, q, v_blk, n_valid, t_window):
         sub = t_in if v == v_blk else t_in[:, start : start + v].contiguous()
         w_out = torch.empty_like(w)
         with torch.cuda.device(w.device):
             stream = torch.cuda.current_stream(w.device).cuda_stream
             k.launches += 1
             rc = fn(w.data_ptr(), sub.data_ptr(), operands.data_ptr(),
-                    w_out.data_ptr(), build.ptr(grid), int(resident), d, p, q, v,
-                    nv, int(t_window), int(w_max), int(wta_k),
+                    w_out.data_ptr(), int(resident), d, p, q, v, nv,
+                    int(t_window), int(w_max), int(wta_k),
                     int(bool(stabilize)), _eps(w_max), stream)
         build.check_launch(k, rc)
         w = w_out
@@ -519,25 +521,28 @@ def fused_block_padded(
 
 
 def block_sub_launches(
-    p: int, q: int, v_blk: int, n_valid: int
+    p: int, q: int, v_blk: int, n_valid: int, t_window: int
 ) -> list[tuple[int, int, int]]:
     """How ``fused_block_padded`` launches one block of ``v_blk`` volleys
-    in a p x q envelope: (first volley, volleys staged, volleys folded)
-    per launch.
+    in a p x q envelope of ``t_window`` cycles: (first volley, volleys
+    staged, volleys folded) per launch.
 
     One launch takes the whole block when its volleys fit in a thread
     block's shared memory in the layout the wrapper picks (beside the
-    weights where one volley fits so, else beside the firing times alone).
+    weights where one volley fits so, else beside the firing times and
+    the fire's histogram alone).
     Otherwise the block's first ``n_valid`` volleys fold as consecutive
     launches of the largest sub-block that fits (the kernel's own
     ``_smem_bytes`` decides), in order; volleys fold in order either way,
     so the result is the same function of the inputs.
     """
     k = build.FUSED_BLOCK
-    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1)
+    t_window = int(t_window)
+    resident = k.resident(f"one volley of a {p} x {q} envelope", p, q, 1,
+                          t_window)
     v_fit = v_blk
     while v_fit > 1 and k.smem_bytes(
-        p, q, v_fit, resident=resident
+        p, q, v_fit, t_window, resident=resident
     ) > build.MAX_SMEM_BYTES:
         v_fit -= 1
     if v_fit >= v_blk:
@@ -573,9 +578,11 @@ def fit_scan_padded(
     q_active per design.  The scan advances in blocks of ``v_blk``
     volleys: ``'cuda'`` launches ``fused_block_padded`` once per block,
     ``'reference'`` folds the same block with its plain version (RNL or
-    SNL).  Results are the same for every ``v_blk``: blocking changes the
-    schedule, never the online rule; callers take it from their
-    ``backend.execution_plan``.  ``w`` is not modified.
+    SNL).  The ``'cuda'`` lowering raises on floating-point ``xs``: its
+    kernel's fire is exact for integer spike times only (the callers pass
+    ``TIME_DTYPE``).  Results are the same for every ``v_blk``: blocking
+    changes the schedule, never the online rule; callers take it from
+    their ``backend.execution_plan``.  ``w`` is not modified.
     """
     if lowering not in LOWERINGS:
         raise ValueError(f"unknown lowering: {lowering!r}")
@@ -591,6 +598,12 @@ def fit_scan_padded(
             f"the padded {lowering} lowering supports response "
             f"{fire_responses(lowering)}, got {response!r}; use "
             "lowering='reference'"
+        )
+    if lowering == "cuda" and xs.is_floating_point():
+        raise ValueError(
+            f"the padded cuda lowering needs integer volleys (the kernel's "
+            f"fire is exact for integer spike times), got {xs.dtype}; pass "
+            f"{TIME_DTYPE}"
         )
     dev = w.device
     operands = design_operands(

@@ -241,8 +241,9 @@ def test_block_wrappers_refuse_bad_operands(cuda_device):
         fused_column.fused_block_padded(w, t.cpu(), ops, 4, **kw)
     with pytest.raises(ValueError):
         fused_column.fused_block_padded(w, t[:, :, :7], ops, 4, **kw)
-    # 600 x 48 does not fit in shared memory: the device-memory layout
-    wb, tb, ob = _block_case(1, 600, 48, 4, seed=600)
+    # 1200 x 48 does not fit in shared memory: the device-memory layout
+    wb, tb, ob = _block_case(1, 1200, 48, 4, seed=600)
+    assert not build.FUSED_BLOCK.resident("", 1200, 48, 1, 64)
     bkw = dict(kw, t_window=64)
     ref = fused_column.fused_block_padded_plain(wb, tb, ob, 4, **bkw)
     got = fused_column.fused_block_padded(
@@ -265,44 +266,99 @@ def test_block_wrappers_refuse_bad_operands(cuda_device):
 
 
 def test_fused_block_folds_an_oversized_block_as_sub_launches(cuda_device):
-    """The on/off 540 x 50 envelope at v_blk 32 needs 285 KB of shared
-    memory; the wrapper folds the block's valid volleys as consecutive
-    launches of the 7 that fit beside the weights, bit-equal to the plain
-    version's fold of the whole block."""
-    d, p, q, v_blk, n_valid = 12, 540, 50, 32, 30
+    """A 1000 x 40 envelope at v_blk 32 needs 298,720 B of shared memory;
+    the wrapper folds the block's valid volleys as consecutive launches of
+    the 15 that fit beside the weights and the fire's histogram, bit-equal
+    to the plain version's fold of the whole block."""
+    d, p, q, v_blk, n_valid = 4, 1000, 40, 32, 30
     w, t_in, ops_ = _block_case(d, p, q, v_blk, seed=540)
     kw = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
     per_volley = 4 * p
-    fixed = (2 * p * q + q) * 4 + 4 * q  # tnn_fused_block_smem_bytes at v_blk 0
-    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk) == fixed + v_blk * per_volley
-    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk, resident=False) == (
-        fixed - 8 * p * q + v_blk * per_volley)
+    # tnn_fused_block_smem_bytes at v_blk 0: weights, winner and firing
+    # times, q difference rows of t_window + 1 ints
+    fixed = (p * q + q) * 4 + 4 * q + 4 * q * 65
+    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk, 64) == fixed + v_blk * per_volley
+    assert build.FUSED_BLOCK.smem_bytes(p, q, v_blk, 64, resident=False) == (
+        fixed - 4 * p * q + v_blk * per_volley)
     v_fit = (build.MAX_SMEM_BYTES - fixed) // per_volley
-    assert v_fit == 7
+    assert v_fit == 15
     ref = fused_column.fused_block_padded_plain(w, t_in, ops_, n_valid, **kw)
     before = build.FUSED_BLOCK.launches
     got = fused_column.fused_block_padded(
         w.to(cuda_device), t_in.to(cuda_device), ops_.to(cuda_device), n_valid,
         **kw)
     torch.cuda.synchronize()
-    assert build.FUSED_BLOCK.launches == before + -(-n_valid // v_fit) == before + 5
+    assert build.FUSED_BLOCK.launches == before + -(-n_valid // v_fit) == before + 2
     assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+
+@pytest.mark.parametrize("p,q", [(270, 50), (650, 130)], ids=["resident", "device_memory"])
+def test_fused_block_kernel_at_the_slope_form_edges(cuda_device, p, q):
+    """The slope-histogram fire's edges, in both layouts: grid weights 0
+    and w_max, times silent at t_max and at t_window, at t_end - 1 and 0,
+    a threshold-0 design, t_max < t_window, q_active < q."""
+    d, v_blk, t_window = 4, 32, 64
+    rng = np.random.default_rng(p * q + 1)
+    w = _half_grid_weights(rng, (d, p, q))
+    w[:, : p // 8] = 0.0
+    w[:, p // 8 : p // 4] = 7.0
+    t_maxes = np.array([64, 40, 64, 33])
+    t_in = rng.integers(0, t_window + 8, (d, v_blk, p)).astype(np.float32)
+    for k, tm in enumerate(t_maxes):
+        t_end = min(t_window, int(tm))
+        t_in[k, :, 0], t_in[k, :, 1], t_in[k, :, 2], t_in[k, :, 3] = tm, t_window, t_end - 1, 0
+        t_in[k, :, 4 : 4 + p // 10] = t_end - 1
+    ops_ = fused_column.design_operands(
+        [0.2 * p * 3.5, 0.15 * p * 3.5, 0.0, 0.3 * p * 3.5], t_maxes,
+        [q, q - 7, q, 1], [0.5, 1.0, 0.5, 1.0], 0.5, [1 / 1024, 0.5, 0.5, 1 / 1024])
+    w, t_in = torch.from_numpy(w), torch.from_numpy(t_in)
+    assert build.FUSED_BLOCK.resident("", p, q, 1, t_window) == (p == 270)
+    for k, stab in ((1, True), (2, False)):
+        kw = dict(t_window=t_window, w_max=7, wta_k=k, stabilize=stab)
+        ref = fused_column.fused_block_padded_plain(w, t_in, ops_, 27, **kw)
+        got = fused_column.fused_block_padded(
+            w.to(cuda_device), t_in.to(cuda_device), ops_.to(cuda_device), 27, **kw)
+        assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+        assert not torch.equal(ref, w)
+
+
+def test_fit_scan_padded_refuses_float_volleys_on_the_card(cuda_device):
+    """The 'cuda' lowering takes integer volleys only (the kernel's fire is
+    exact for integer spike times); the same volleys as TIME_DTYPE run and
+    equal the CPU."""
+    rng = np.random.default_rng(8)
+    d, p, q, n = 2, 30, 6, 20
+    w = torch.from_numpy(rng.integers(0, 8, (d, p, q)).astype(np.float32))
+    xs = torch.from_numpy(rng.integers(0, 36, (n, d, p)).astype(np.int32))
+    args = dict(t_window=32, w_max=7, wta_k=1, mu_capture=1.0, mu_backoff=1.0,
+                mu_search=1.0, stabilize=False, response="rnl", epochs=1, v_blk=32)
+    th, tm, qa = [12.0, 20.0], [32, 24], [6, 4]
+    with pytest.raises(ValueError, match="integer volleys"):
+        fused_column.fit_scan_padded(w.to(cuda_device), xs.float().to(cuda_device),
+                                     th, tm, qa, lowering="cuda", **args)
+    got = fused_column.fit_scan_padded(w.to(cuda_device), xs.to(cuda_device),
+                                       th, tm, qa, lowering="cuda", **args)
+    want = fused_column.fit_scan_padded(w, xs, th, tm, qa, lowering="reference", **args)
+    assert torch.equal(got.cpu(), want)
 
 
 # ------------------------------------- the device-memory layout
 # (p, q): too wide for shared memory in the resident layout; at 637 x 50
-# only fused_step and fused_block are, the fire kernels stay resident
+# only fused_step is (the fire kernels and fused_block stay resident), at
+# 4000 x 8 all but fused_block
 LAYOUT_SHAPES = [(650, 130), (4000, 8), (637, 50)]
 
 
 @pytest.mark.parametrize("p,q", LAYOUT_SHAPES)
 def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
-    """All four fire kernels at widths whose weights do not fit in shared
-    memory: bit-equal to their plain versions, one launch each."""
+    """All four fire kernels at widths where some of them cannot keep
+    their weights in shared memory: bit-equal to their plain versions, in
+    the launches their layouts take."""
     resident = {k.name: k.resident("", p, q) for k in (
         build.FUSED_STEP, build.RNL_FIRE, build.FIRE_BLOCK)}
-    resident["fused_block"] = build.FUSED_BLOCK.resident("", p, q, 1)
-    assert not resident["fused_step"] and not resident["fused_block"]
+    resident["fused_block"] = build.FUSED_BLOCK.resident("", p, q, 1, 64)
+    assert not resident["fused_step"]
+    assert resident["fused_block"] == ((p, q) != (650, 130))
     assert resident["rnl_fire"] == resident["fire_block"] == ((p, q) == (637, 50))
 
     w, t_in, ops_ = _fused_case(2, p, q, 64, seed=p + q, hetero=True)
@@ -319,7 +375,7 @@ def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
         w.to(cuda_device), blk.to(cuda_device), ops_.to(cuda_device), 20, **kw)
     torch.cuda.synchronize()
     assert build.FUSED_BLOCK.launches - before == len(
-        fused_column.block_sub_launches(p, q, 32, 20))
+        fused_column.block_sub_launches(p, q, 32, 20, 64))
     assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
 
     ref = fused_column.fire_block_padded_plain(w, blk, ops_, t_window=64, w_max=7)
@@ -439,6 +495,36 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, hq, hkv, d, ca
     ref32 = flash_lib.flash_attention_plain(qb.float(), kb.float(), vb.float(), causal)
     bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
     assert bool(((got.cpu().float() - ref32).abs() <= bound).all())
+
+
+# (Sq, Skv): 64-key and 128-row tile edges, Skv != Sq both ways
+RAGGED = [(1, 1), (63, 63), (65, 65), (129, 129), (1000, 1000), (65, 129),
+          (129, 63), (1, 1000)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bf16_tensor_core_kernel_at_ragged_edges(cuda_device, d, group, causal):
+    """The bf16 kernel (wgmma, TMA) at every head dim, GQA group and tile
+    edge: per element against the f32 plain version on the same bf16
+    values within one bf16 rounding plus 1e-5 of the largest output, and
+    within 2e-2 of the largest against the bf16 plain version."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    for sq, skv in RAGGED:
+        q, k, v = (t.to(torch.bfloat16) for t in _flash_inputs(
+            2, sq, 2 * group, 2, d, skv, seed=sq + skv + d + group))
+        before = build.FLASH_ATTENTION.launches
+        got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal)
+        torch.cuda.synchronize()
+        assert build.FLASH_ATTENTION.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        got = got.cpu().float()
+        ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+        assert bool(((got - ref32).abs() <= bound).all()), (sq, skv)
+        assert _rel(got, flash_lib.flash_attention_plain(q, k, v, causal)) < 2e-2
 
 
 def test_flash_attention_refuses_bad_operands(cuda_device):

@@ -303,25 +303,31 @@ def test_step_monitor_and_rebalance_policy_identical():
 
 
 # ------------------------------------------- the volley block's split
-def _smem(p, q, v_blk, resident=True):
+def _smem(p, q, v_blk, t_window, resident=True):
     # csrc/fused_block.cu: tnn_fused_block_smem_bytes
-    return (2 * p * q * resident + v_blk * p + q) * 4 + 4 * q
+    return (p * q * resident + v_blk * p + q) * 4 + (q + q * (t_window + 1)) * 4
 
 
 def test_block_sub_launches_split_only_what_does_not_fit(monkeypatch):
     monkeypatch.setattr(build.FUSED_BLOCK, "smem_bytes", _smem)
     # the sweeps' 270 x 50 envelope fits a block of 32: one launch
-    assert fused_column.block_sub_launches(270, 50, 32, 32) == [(0, 32, 32)]
-    assert fused_column.block_sub_launches(270, 50, 32, 4) == [(0, 32, 4)]
-    # the on/off 540 x 50 envelope fits 7 volleys beside its weights
-    v_fit = (build.MAX_SMEM_BYTES - _smem(540, 50, 0)) // (540 * 4)
-    assert v_fit == 7
-    plan = fused_column.block_sub_launches(540, 50, 32, 30)
-    assert plan == [(0, 7, 7), (7, 7, 7), (14, 7, 7), (21, 7, 7), (28, 2, 2)]
-    assert fused_column.block_sub_launches(540, 50, 32, 32)[-1] == (28, 4, 4)
-    assert fused_column.block_sub_launches(540, 50, 32, 4) == [(0, 4, 4)]
-    # a single volley of ~29 K synapses no longer fits
-    assert _smem(600, 48, 1) > build.MAX_SMEM_BYTES
+    assert fused_column.block_sub_launches(270, 50, 32, 32, 64) == [(0, 32, 32)]
+    assert fused_column.block_sub_launches(270, 50, 32, 4, 64) == [(0, 32, 4)]
+    # so does the on/off 540 x 50 envelope (51 volleys fit beside its
+    # weights and the fire's histogram)
+    assert (build.MAX_SMEM_BYTES - _smem(540, 50, 0, 64)) // (540 * 4) == 51
+    assert fused_column.block_sub_launches(540, 50, 32, 30, 64) == [(0, 32, 30)]
+    # a 1000 x 40 envelope fits 15 volleys beside its weights
+    v_fit = (build.MAX_SMEM_BYTES - _smem(1000, 40, 0, 64)) // (1000 * 4)
+    assert v_fit == 15
+    plan = fused_column.block_sub_launches(1000, 40, 32, 30, 64)
+    assert plan == [(0, 15, 15), (15, 15, 15)]
+    assert fused_column.block_sub_launches(1000, 40, 32, 32, 64)[-1] == (30, 2, 2)
+    assert fused_column.block_sub_launches(1000, 40, 32, 4, 64) == [(0, 4, 4)]
+    # the window sizes the histogram: at t_window 32, 16 volleys fit
+    assert fused_column.block_sub_launches(1000, 40, 32, 30, 32)[0] == (0, 16, 16)
+    # a single volley of ~57 K synapses no longer fits
+    assert _smem(1200, 48, 1, 64) > build.MAX_SMEM_BYTES
 
 
 def test_sub_block_fold_equals_the_whole_block(monkeypatch):
@@ -329,10 +335,10 @@ def test_sub_block_fold_equals_the_whole_block(monkeypatch):
     (plain versions, at a width where the plan splits)."""
     # a card on which only 4 volleys fit beside the weights
     monkeypatch.setattr(build.FUSED_BLOCK, "smem_bytes",
-                        lambda p, q, v, resident=True: build.MAX_SMEM_BYTES + (v > 4))
+                        lambda p, q, v, t, resident=True: build.MAX_SMEM_BYTES + (v > 4))
     rng = np.random.default_rng(0)
     d, p, q, v_blk, n_valid = 3, 24, 6, 12, 10
-    plan = fused_column.block_sub_launches(p, q, v_blk, n_valid)
+    plan = fused_column.block_sub_launches(p, q, v_blk, n_valid, 32)
     assert len(plan) > 1 and sum(v for _, v, _ in plan) == n_valid
     w = torch.from_numpy(rng.uniform(0, 7, (d, p, q)).astype(np.float32))
     t_in = torch.from_numpy(rng.integers(0, 36, (d, v_blk, p)).astype(np.float32))

@@ -157,9 +157,10 @@ def _fused_step_smem(p, q, resident=True):
     return (2 * p * q * resident + p + q) * 4 + 4 * q
 
 
-def _fused_block_smem(p, q, v_blk, resident=True):
-    # csrc/fused_block.cu: tnn_fused_block_smem_bytes
-    return (2 * p * q * resident + v_blk * p + q) * 4 + 4 * q
+def _fused_block_smem(p, q, v_blk, t_window, resident=True):
+    # csrc/fused_block.cu: tnn_fused_block_smem_bytes (no integer grid; the
+    # fire's slope histogram, q rows of t_window + 1 ints)
+    return (p * q * resident + v_blk * p + q) * 4 + (q + q * (t_window + 1)) * 4
 
 
 def _rnl_fire_smem(p, q, resident=True):
@@ -184,7 +185,7 @@ def smem_formulas(monkeypatch):
 def _layouts(p, q) -> dict:
     return {
         "fused_step": build.FUSED_STEP.resident("", p, q),
-        "fused_block": build.FUSED_BLOCK.resident("", p, q, 1),
+        "fused_block": build.FUSED_BLOCK.resident("", p, q, 1, 64),
         "rnl_fire": build.RNL_FIRE.resident("", p, q),
         "fire_block": build.FIRE_BLOCK.resident("", p, q),
     }
@@ -193,31 +194,37 @@ def _layouts(p, q) -> dict:
 @pytest.mark.parametrize("p,q,want", [
     (270, 25, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
     (540, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
-    # Lightning2 at q = 50: a volley needs 257,748 B beside the weights,
-    # while the fire kernels' grid and tile need 147,784 B
-    (637, 50, dict(fused_step=False, fused_block=False, rnl_fire=True, fire_block=True)),
+    # Lightning2 at q = 50: a volley needs 257,748 B beside the weights and
+    # their grid in fused_step, 143,348 B beside the weights and the
+    # histogram in fused_block, while the fire kernels' grid and tile need
+    # 147,784 B
+    (637, 50, dict(fused_step=False, fused_block=True, rnl_fire=True, fire_block=True)),
     (650, 130, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
-    (4000, 8, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
+    (4000, 8, dict(fused_step=False, fused_block=True, rnl_fire=False, fire_block=False)),
+    (6000, 10, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
 ])
 def test_kernels_take_the_resident_layout_wherever_it_fits(smem_formulas, p, q, want):
     assert _layouts(p, q) == want
     assert _fused_step_smem(637, 50) == 257_748
+    assert _fused_block_smem(637, 50, 1, 64) == 143_348
     assert _rnl_fire_smem(637, 50) == _fire_block_smem(637, 50) == 147_784
 
 
 def test_device_layout_blocks_split_by_the_same_formula(smem_formulas):
-    """In the device-memory layout a block of 32 volleys at 637 x 50 fits
-    in one launch; at 4000 x 8 it splits into the volleys that fit beside
-    the firing times alone."""
+    """In the device-memory layout a block of 32 volleys at 650 x 130 fits
+    in one launch; at 6000 x 10 it splits into the volleys that fit beside
+    the firing times and the histogram alone."""
     from repro_torch.kernels import fused_column
 
-    assert fused_column.block_sub_launches(637, 50, 32, 32) == [(0, 32, 32)]
-    v_fit = (build.MAX_SMEM_BYTES - _fused_block_smem(4000, 8, 0, False)) // (4 * 4000)
-    assert v_fit == 14
-    plan = fused_column.block_sub_launches(4000, 8, 32, 30)
-    assert plan == [(0, 14, 14), (14, 14, 14), (28, 2, 2)]
-    # the resident envelopes split as before
-    assert fused_column.block_sub_launches(540, 50, 32, 30)[0] == (0, 7, 7)
+    assert fused_column.block_sub_launches(650, 130, 32, 32, 64) == [(0, 32, 32)]
+    v_fit = (build.MAX_SMEM_BYTES
+             - _fused_block_smem(6000, 10, 0, 64, False)) // (4 * 6000)
+    assert v_fit == 9
+    plan = fused_column.block_sub_launches(6000, 10, 32, 30, 64)
+    assert plan == [(0, 9, 9), (9, 9, 9), (18, 9, 9), (27, 3, 3)]
+    # the resident envelopes split by the same formula
+    assert fused_column.block_sub_launches(637, 50, 32, 32, 64) == [(0, 32, 32)]
+    assert fused_column.block_sub_launches(4000, 8, 32, 30, 64)[0] == (0, 6, 6)
 
 
 def test_layout_refuses_what_fits_in_neither(smem_formulas):
