@@ -9,10 +9,15 @@ JAX or the JAX package.  Phases, each of which asserts:
 
 1. build: all six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
-2. the fused-step kernel against its plain PyTorch version (D = 1 at
-   WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1 and 2;
-   stabilizer on and off; D = 2 at 650 x 130, which runs in the kernel's
-   device-memory layout): winner times and weights bit-equal;
+2. the fused-step kernel against its plain PyTorch version: one volley
+   (D = 1 at WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1
+   and 2; stabilizer on and off; D = 2 at 650 x 130, which runs in the
+   kernel's device-memory layout; f32 and int32 times), then whole fits
+   folded in one launch (D = 1 and D = 4 heterogeneous; p 65, 270, 637,
+   650 and 4000; N 1, 7 and 900; 0, 1 and 3 epochs; int32 volleys (the
+   slope histogram), float volleys with non-integer times and int32
+   volleys with negative times (the ramp sum); trace on and off; both
+   layouts): winner times, trace and weights bit-equal;
 3. the RNL-fire kernel against its plain version (B = 905 at 270 x 25,
    B = 121 at 637 x 2, B = 121 at 650 x 130 in the device-memory
    layout): equal;
@@ -36,7 +41,8 @@ JAX or the JAX package.  Phases, each of which asserts:
    times with silent entries; weights outside [0, 7] and at x.5): equal;
 7. the single-column path: ``simulator.cluster_time_series`` on all
    seven Table II designs, full synthetic doubles, 8 epochs, under
-   mode='auto' and mode='pallas', with launch counters read around it;
+   mode='auto' and mode='pallas', with launch counters read around it
+   (one fused-step launch per fit);
    WordSynonyms and Lightning2 again on the CPU from the same initial
    weights, which must give the same assignments and Rand index;
 8. the sweep path, launch counters read around it: two 12-design
@@ -50,9 +56,10 @@ JAX or the JAX package.  Phases, each of which asserts:
 10. the ``ops`` path, launch counters read around it: WordSynonyms
     (270 x 25, all 900 volleys, default STDP, one epoch) through the
     unfused loop ``ops.column_forward`` -> ``ops.stdp_step`` (RNL fire and
-    STDP update, one launch each per volley) and through
-    ``ops.train_volleys`` (one fused step per volley): weights bit-equal
-    to each other and to ``train_volleys`` on the CPU;
+    STDP update, one launch each per volley, the path's int32 times read
+    by the STDP kernel as they are) and through ``ops.train_volleys`` (one
+    fused-step launch for all 900 volleys): weights bit-equal to each
+    other and to ``train_volleys`` on the CPU;
 11. the DSE path, launch counters read around it: ``dse.explore`` over
     the full WordSynonyms stream, 24 candidates (q 25/50 x t_max 32/64 x
     three threshold scales x latency/on-off encoders), 4 epochs: nothing
@@ -94,12 +101,17 @@ JAX or the JAX package.  Phases, each of which asserts:
     2048, 16 tokens: 40 flash launches per prefill, finite logits, peak
     device memory, prefill and decode times (then again, warm);
 17. timing at the paths' shapes with CUDA events, beside each kernel's
-    bound on the card: the volley-block kernel on the default sweep's
+    bound on the card: the fused-step kernel on each Table II design's
+    whole fit in one launch (ms per launch, us per volley; at
+    WordSynonyms beside the plain fold over a 32-volley prefix and the
+    fit's bound, recounted volley by volley in the slope form), and on
+    one volley with int32 and with f32 times; the volley-block kernel on the default sweep's
     first launch (D = 12 at 270 x 50, v_blk = 32; bound by the slope
     form's operations, the ramp sum's printed beside it), the batched
     fire on each of the integer-grid sweep's launches (the kernels line
-    sums them), the STDP update on the ops path's first volley and at the
-    phase 6 shapes, the four fire kernels at 650 x 130 in the
+    sums them), the STDP update on the ops path's first volley (its int32
+    times, and as f32) and at the phase 6 shapes, the four fire kernels
+    at 650 x 130 in the
     device-memory layout, and the flash kernel at the granite prefill
     shape beside its plain version and PyTorch's
     ``scaled_dot_product_attention`` (bound by the operations of its
@@ -478,6 +490,119 @@ def check_block_split(fused_column, build, dev) -> float:
         assert launched == len(plan) == -(-min(n_valid, v_blk) // v_fit), (launched, plan)
         assert torch.equal(got, ref), "fused_block: the split block differs"
     return worst
+
+
+def fit_volleys(rng, kind, shape, t_max):
+    """int32 times with silent ones (>= t_max), the same shifted by a half
+    (f32, non-integer), int32 times down to -8, or (``mixed``) int32
+    times down to -8 in the first design only."""
+    import numpy as np
+
+    if kind == "int":
+        return rng.integers(0, t_max + 8, shape).astype(np.int32)
+    if kind == "half":
+        return (rng.integers(0, t_max + 8, shape) + 0.5).astype(np.float32)
+    x = rng.integers(-8, t_max + 8, shape).astype(np.int32)
+    if kind == "mixed":
+        x[1:] = np.abs(x[1:])
+    return x
+
+
+# (d, p, q, n, epochs, volleys, trace, wta_k, stabilize)
+FIT_CASES = (
+    (1, 270, 25, 900, 1, "int", True, 1, True),    # WordSynonyms, a whole epoch
+    (4, 270, 25, 7, 3, "int", True, 2, True),
+    (4, 270, 25, 7, 3, "neg", True, 1, False),
+    (4, 270, 25, 7, 3, "mixed", True, 2, True),    # a fire form per design
+    (4, 65, 40, 7, 3, "half", True, 1, True),      # q wider than a warp
+    (1, 637, 2, 7, 3, "int", False, 1, True),      # Lightning2
+    (1, 637, 50, 7, 3, "neg", True, 2, True),
+    (2, 650, 130, 7, 1, "int", True, 1, True),     # the device-memory layout
+    (2, 650, 130, 7, 1, "half", False, 2, False),
+    (2, 650, 130, 7, 1, "mixed", True, 1, True),
+    (1, 4000, 16, 7, 3, "neg", True, 1, True),     # the device-memory layout
+    (1, 4000, 8, 1, 1, "int", True, 2, True),
+    (4, 96, 5, 7, 0, "int", True, 1, True),        # no epoch
+)
+
+
+def check_fused_fit(fused_column, build, dev) -> float:
+    """Phase 2, second half: whole fits folded in one launch of the
+    fused-step kernel against the plain fold (heterogeneous designs where
+    D > 1); returns the largest difference."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for d, p, q, n, epochs, kind, trace, k, stab in FIT_CASES:
+        rng = np.random.default_rng(d * 1000 + p + q + n + epochs)
+        w = torch.from_numpy(half_grid(rng, (d, p, q)))
+        xs = torch.from_numpy(fit_volleys(rng, kind, (d, n, p), 64))
+        tm = rng.integers(32, 65, d)
+        qa = rng.integers(1, q + 1, d)
+        tm[0], qa[0] = 64, q
+        ops = fused_column.design_operands(
+            rng.uniform(0.1, 0.4, d) * p * 3.5, tm, qa,
+            rng.choice([0.5, 1.0, 0.25], d), rng.choice([0.5, 1.0], d),
+            rng.choice([1 / 1024, 0.5], d))
+        kw = dict(epochs=epochs, t_window=64, w_max=7, wta_k=k, stabilize=stab,
+                  trace=trace)
+        w_ref, y_ref = fused_column.fused_fit_padded_plain(w, xs, ops, **kw)
+        before = build.FUSED_STEP.launches
+        w_k, y_k = fused_column.fused_fit_padded(w.to(dev), xs.to(dev), ops.to(dev), **kw)
+        torch.cuda.synchronize()
+        launched = build.FUSED_STEP.launches - before
+        dw = float((w_k.cpu() - w_ref).abs().max())
+        dy = float((y_k.cpu() - y_ref).abs().max()) if trace and y_ref.numel() else 0.0
+        worst = max(worst, dw, dy)
+        log(f"[fused_step] fit D={d} {p}x{q} N={n} epochs={epochs} {kind} "
+            f"trace={trace} k={k} stabilize={stab} launches={launched} max|dw|={dw} "
+            f"max|dy|={dy} {layout_name(build.FUSED_STEP, p, q, 64)}")
+        assert launched == 1, launched
+        assert (y_k is None) == (not trace)
+        if trace:
+            assert torch.equal(y_k.cpu(), y_ref), "fused_step: the fit's trace differs"
+        assert torch.equal(w_k.cpu(), w_ref), "fused_step: the fit's weights differ"
+    return worst
+
+
+def fit_bound(fused_column, w, xs, ops, kw, last=False) -> tuple[int, int, int]:
+    """Bytes and operations of one whole-fit launch of the fused-step
+    kernel for one design on these inputs: the weights read and written
+    once, each volley and the operands read once, the trace (with
+    ``kw['trace']``) or the last winner times (``last``) written once.
+    Operations volley by volley on the weights each volley sees (replayed
+    one volley at a time by the kernel), in the slope-histogram form as
+    ``block_bound`` counts them; the third number is the same work as the
+    ramp sum."""
+    import torch
+
+    _, n, p = xs.shape
+    q = w.shape[2]
+    epochs, t_window, w_max = kw["epochs"], kw["t_window"], kw["w_max"]
+    step = dict(t_window=t_window, w_max=w_max, wta_k=kw["wta_k"],
+                stabilize=kw["stabilize"])
+    n_out = epochs * n * q if kw.get("trace") else (q if last else 0)
+    n_bytes = 4 * (2 * p * q + n * p + 6 + n_out)
+    thr, tm, qa = ops[:, 0:1], ops[:, 1:2], ops[:, 2:3]
+    live = torch.arange(q, device=w.device) < qa  # [1, q]
+    t_end = torch.clamp(torch.ceil(tm), max=float(t_window))[..., None]
+    n_edges = torch.zeros((), dtype=torch.int64, device=w.device)
+    n_cycles = torch.zeros((), dtype=torch.int64, device=w.device)
+    for _ in range(epochs):
+        for i in range(n):
+            one = xs[:, i].contiguous()
+            g = torch.round(torch.clamp(w, 0.0, float(w_max)))
+            t = fused_column.fire_dense_ref(g, one, thr, t_window, tm).long()
+            ti = one[:, :, None].float()
+            up = (ti >= 0) & (ti < t_end) & (g > 0) & live[:, None, :]
+            down = up & (ti + g < t_end)
+            n_edges += up.sum() + down.sum()
+            n_cycles += (torch.minimum(t + 1, tm.long()) * live).sum()
+            w, _ = fused_column.fused_step_padded(w, one, ops, **step)
+    stdp = 10 * p * int(live.sum()) * epochs * n
+    return (n_bytes, int(n_edges) + 2 * int(n_cycles) + stdp,
+            2 * p * int(n_cycles) + stdp)
 
 
 def stdp_inputs(p, q, dtype, seed):
@@ -865,15 +990,22 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
     kw_d = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
     fkw = dict(t_window=64, w_max=7)
     thr = 0.25 * p * 3.5
-    w1, x1, ops1 = w_d[:1].contiguous(), blk_d[:1, 0].contiguous(), ops_d[:1]
-    t1 = fused_column.fire_dense_ref(torch.round(torch.clamp(w_d[0], 0, 7)), x1[0],
-                                     thr, 64)
+    w1, ops1 = w_d[:1].contiguous(), ops_d[:1]
+    x1 = blk_d[:1, 0].to(torch.int32).contiguous()
+    x1f = x1.to(torch.float32)
+    one_bytes, one_slope, one_ramp = fit_bound(
+        fused_column, w1, x1[:, None], ops1, dict(kw_d, epochs=1), last=True)
     tf_rnl = rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7)
+    # (name, shape, kernel, plain version, (bytes, operations), reps)
     cases = (
-        ("fused_step", "D=1 one volley",
+        ("fused_step", "D=1 one volley, int32 times",
          lambda: fused_column.fused_step_padded(w1, x1, ops1, **kw_d),
          lambda: fused_column.fused_step_padded_plain(w1, x1, ops1, **kw_d),
-         (4 * (2 * p * q + p + 6 + q), fire_ops(p, t1, 64) + 10 * p * q), 200),
+         (one_bytes, one_slope), 200),
+        ("fused_step f32", "D=1 one volley, f32 times",
+         lambda: fused_column.fused_step_padded(w1, x1f, ops1, **kw_d),
+         lambda: fused_column.fused_step_padded_plain(w1, x1f, ops1, **kw_d),
+         (one_bytes, one_ramp), 200),
         ("rnl_fire", f"B={n_b}",
          lambda: rnl_response.rnl_fire(xs_d[0], w_d[0], thr, 64, 7),
          lambda: rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7),
@@ -1003,19 +1135,23 @@ def main() -> int:
         (4, 270, 25, 2, True, True), (4, 270, 25, 1, False, True),
         (2, 650, 130, 2, True, True),  # the device-memory layout
     ):
-        w, t_in, ops = fused_case(d, p, q, seed=d * 1000 + p + q + k_, hetero=hetero)
+        w, t_f32, ops = fused_case(d, p, q, seed=d * 1000 + p + q + k_, hetero=hetero)
         kw = dict(t_window=64, w_max=7, wta_k=k_, stabilize=stab)
-        w_ref, y_ref = fused_column.fused_step_padded_plain(w, t_in, ops, **kw)
-        w_k, y_k = fused_column.fused_step_padded(
-            w.to(dev), t_in.to(dev), ops.to(dev), **kw)
-        torch.cuda.synchronize()
-        dw = float((w_k.cpu() - w_ref).abs().max())
-        dy = float((y_k.cpu() - y_ref).abs().max())
-        err["fused_step"] = max(err["fused_step"], dw, dy)
-        log(f"[fused_step] D={d} {p}x{q} k={k_} stabilize={stab} "
-            f"max|dw|={dw} max|dy|={dy} {layout_name(build.FUSED_STEP, p, q)}")
-        assert torch.equal(y_k.cpu(), y_ref), "fused_step: winner times differ"
-        assert torch.equal(w_k.cpu(), w_ref), "fused_step: weights differ"
+        for t_in in (t_f32, t_f32.to(torch.int32)):
+            w_ref, y_ref = fused_column.fused_step_padded_plain(w, t_in, ops, **kw)
+            w_k, y_k = fused_column.fused_step_padded(
+                w.to(dev), t_in.to(dev), ops.to(dev), **kw)
+            torch.cuda.synchronize()
+            dw = float((w_k.cpu() - w_ref).abs().max())
+            dy = float((y_k.cpu() - y_ref).abs().max())
+            err["fused_step"] = max(err["fused_step"], dw, dy)
+            log(f"[fused_step] D={d} {p}x{q} k={k_} stabilize={stab} "
+                f"times={t_in.dtype} max|dw|={dw} max|dy|={dy} "
+                f"{layout_name(build.FUSED_STEP, p, q, 64)}")
+            assert torch.equal(y_k.cpu(), y_ref), "fused_step: winner times differ"
+            assert torch.equal(w_k.cpu(), w_ref), "fused_step: weights differ"
+    err["fused_step"] = max(err["fused_step"],
+                            check_fused_fit(fused_column, build, dev))
 
     # 3 — RNL fire against its plain version
     for b, p, q in ((905, 270, 25), (121, 637, 2), (121, 650, 130)):
@@ -1078,7 +1214,7 @@ def main() -> int:
             assert np.all((res.assignments >= 0) & (res.assignments <= cfg.q))
             assert bool(torch.isfinite(res.params["w"]).all())
             assert 0.0 <= res.rand_index <= 1.0
-            assert grew["fused_step"] == n * EPOCHS, grew
+            assert grew["fused_step"] == 1, grew  # the whole fit, one launch
             if mode == "pallas":
                 assert grew["rnl_fire"] >= 1, grew
             else:
@@ -1247,7 +1383,7 @@ def main() -> int:
         f"seconds={fused_s!r}; launches={ops_launches}; loop == fused "
         f"{torch.equal(w_loop, w_fused)}; fused == CPU "
         f"{torch.equal(w_fused.cpu(), w_cpu)} | {card}")
-    assert ops_launches == {"fused_step": n_ws, "rnl_fire": n_ws,
+    assert ops_launches == {"fused_step": 1, "rnl_fire": n_ws,
                             "fused_block": 0, "fire_block": 0,
                             "stdp_update": n_ws, "flash_attention": 0}, ops_launches
     assert torch.equal(w_loop, w_fused), "ops: unfused loop and train_volleys differ"
@@ -1386,28 +1522,36 @@ def main() -> int:
     # 17 — timing at the paths' shapes
     timer = Timer(torch)
     rows = {}
-    for name, (cfg, ds, _) in designs.items():
+    for name, (cfg, ds, w0) in designs.items():
         res = results[(name, "pallas")]
         w = res.params["w"].contiguous()
         x = simulator._encode(
             torch.as_tensor(ds.x, dtype=torch.float32, device=dev), cfg, "latency")
         p, q, t_max = cfg.p, cfg.q, cfg.t_max
-        # fused step: one volley (the first series) on the trained weights
-        w3 = w[None].contiguous()
-        xt = x[:1].to(torch.float32).contiguous()
+        n = x.shape[0]
         ops = fused_column.design_operands(
             [cfg.neuron.threshold], [t_max], [q], cfg.stdp.mu_capture,
             cfg.stdp.mu_backoff, cfg.stdp.mu_search, device=dev)
-        kw = dict(t_window=t_max, w_max=cfg.neuron.w_max, wta_k=cfg.wta.k,
-                  stabilize=cfg.stdp.stabilizer == "half")
-        f_ms = timer(lambda: fused_column.fused_step_padded(w3, xt, ops, **kw), 400)
-        f_plain = timer(lambda: fused_column.fused_step_padded_plain(w3, xt, ops, **kw), 100)
-        wi = torch.round(torch.clamp(w, 0, float(cfg.neuron.w_max)))
-        t1 = fused_column.fire_dense_ref(wi, xt[0], cfg.neuron.threshold, t_max)
-        # bytes: w read + written, volley, operands, y; operations: the
-        # fire's min+add pairs, and ~10 per synapse for the STDP update
-        f_bytes = 4 * (2 * p * q + p + 6 + q)
-        f_ops = fire_ops(p, t1, t_max) + 10 * p * q
+        step = dict(t_window=t_max, w_max=cfg.neuron.w_max, wta_k=cfg.wta.k,
+                    stabilize=cfg.stdp.stabilizer == "half")
+        # fused step, the whole fit in one launch, as the path calls it:
+        # the path's initial weights and int32 volleys, no trace
+        wf = w0["w"].to(dev)[None].contiguous()
+        xs = x[None].contiguous()
+        fit_kw = dict(step, epochs=EPOCHS)
+        fit_ms = timer(lambda: fused_column.fused_fit_padded(wf, xs, ops, **fit_kw),
+                       5, warmup=1)
+        n_vol = EPOCHS * n
+        # one volley (the first series) on the trained weights, with the
+        # path's int32 times and as f32
+        w3 = w[None].contiguous()
+        xt = x[:1].contiguous()
+        xf = xt.to(torch.float32)
+        f_ms = timer(lambda: fused_column.fused_step_padded(w3, xt, ops, **step), 400)
+        f32_ms = timer(lambda: fused_column.fused_step_padded(w3, xf, ops, **step), 400)
+        f_plain = timer(lambda: fused_column.fused_step_padded_plain(w3, xt, ops, **step), 100)
+        f_bytes, f_ops, f_ramp = fit_bound(fused_column, w3, xt[:, None], ops,
+                                           dict(step, epochs=1), last=True)
         # RNL fire: the main path's assignment call, every volley
         r_ms = timer(lambda: rnl_response.rnl_fire(x, w, cfg.neuron.threshold,
                                                    t_max, cfg.neuron.w_max), 50)
@@ -1415,17 +1559,38 @@ def main() -> int:
             x, w, cfg.neuron.threshold, t_max, cfg.neuron.w_max), 5, warmup=1)
         tf = rnl_response.rnl_fire_plain(x, w, cfg.neuron.threshold, t_max,
                                          cfg.neuron.w_max)
-        n = x.shape[0]
         r_bytes = 4 * (n * p + p * q + n * q)
         r_ops = fire_ops(p, tf, t_max)
         rows[name] = dict(
-            fused=(f_ms, f_plain, *bound_ms(f_bytes, f_ops), f_bytes, f_ops),
+            one=(f_ms, f_plain, *bound_ms(f_bytes, f_ops), f_bytes, f_ops),
             rnl=(r_ms, r_plain, *bound_ms(r_bytes, r_ops), r_bytes, r_ops, n),
         )
-        log(f"[time] {name} {p}x{q} fused_step ms={f_ms!r} plain_ms={f_plain!r} "
-            f"bound_ms={rows[name]['fused'][2]!r} ({rows[name]['fused'][3]}) | "
-            f"rnl_fire B={n} ms={r_ms!r} plain_ms={r_plain!r} "
-            f"bound_ms={rows[name]['rnl'][2]!r} ({rows[name]['rnl'][3]}) | {card}")
+        log(f"[time] {name} {p}x{q} fused_step whole fit N={n} x {EPOCHS} epochs, "
+            f"one launch: ms={fit_ms!r} us/volley={1e3 * fit_ms / n_vol!r} | "
+            f"one volley, int32 times: ms={f_ms!r}, f32 times: ms={f32_ms!r}, "
+            f"plain_ms={f_plain!r} bound_ms={rows[name]['one'][2]!r} "
+            f"({rows[name]['one'][3]}; {f_bytes} B, {f_ops} ops of the slope form, "
+            f"{f_ramp} of the ramp sum) | rnl_fire B={n} ms={r_ms!r} "
+            f"plain_ms={r_plain!r} bound_ms={rows[name]['rnl'][2]!r} "
+            f"({rows[name]['rnl'][3]}) | {card}")
+        if name != "WordSynonyms":
+            continue
+        # the plain fold over the same whole fit, one timed call (host-bound:
+        # a few launches a volley)
+        fit_plain = timer(lambda: fused_column.fused_fit_padded_plain(
+            wf, xs, ops, **fit_kw), 1, warmup=0)
+        fit_bytes, fit_ops, fit_ramp = fit_bound(fused_column, wf, xs, ops, fit_kw)
+        traced_ms = timer(lambda: fused_column.fused_fit_padded(
+            wf, xs, ops, trace=True, **fit_kw), 5, warmup=1)
+        rows[name]["fit"] = (fit_ms, fit_plain,
+                             *bound_ms(fit_bytes, fit_ops), fit_bytes, fit_ops)
+        log(f"[time] {name} {p}x{q} fused_step whole fit N={n} x {EPOCHS} epochs "
+            f"({n_vol} volleys), one launch: ms={fit_ms!r} "
+            f"us/volley={1e3 * fit_ms / n_vol!r}; with the trace ms={traced_ms!r}; "
+            f"plain fold over the whole fit ms={fit_plain!r}; "
+            f"bound_ms={rows[name]['fit'][2]!r} ({rows[name]['fit'][3]}; "
+            f"{fit_bytes} B, {fit_ops} ops of the slope form; the ramp sum's "
+            f"{fit_ramp} ops, {bound_ms(fit_bytes, fit_ramp)[0]!r} ms) | {card}")
 
     # the padded kernels at the sweep's shapes: D = 12 at 270 x 50
     x_ws = torch.as_tensor(ws.x, dtype=torch.float32, device=dev)
@@ -1478,8 +1643,8 @@ def main() -> int:
     c_stdp = cfg_ws.stdp
     stdp_args = (c_stdp.mu_capture, c_stdp.mu_backoff, c_stdp.mu_search,
                  cfg_ws.neuron.w_max, cfg_ws.t_max, c_stdp.stabilizer == "half")
-    # the path's times are int32, which the wrapper casts to f32 (two
-    # small copies); f32 times alone show the kernel without them
+    # the path's times are int32, which the kernel reads as they are;
+    # the same update on f32 times beside it
     w0s, x0s, y0s = stdp_path_inputs
     stdp_cases = [("ops path volley 0", w0s, x0s, y0s),
                   ("ops path volley 0, f32 times", w0s, x0s.float(), y0s.float())]
@@ -1513,7 +1678,9 @@ def main() -> int:
                          flash_attention=lm["launches"])
     entries = []
     for k, r, shape in (
-        (build.FUSED_STEP, wsr["fused"], "D=1 270x25 t_max=64"),
+        (build.FUSED_STEP, wsr["fit"],
+         f"D=1 270x25 t_max=64: the whole fit, N={n_ws} x {EPOCHS} epochs, in one "
+         f"launch, no trace; plain_ms: the plain fold over the same fit"),
         (build.RNL_FIRE, wsr["rnl"], f"B={n_ws} 270x25 t_max=64"),
         (build.FUSED_BLOCK, rows["sweep"]["block"], "D=12 270x50 v_blk=32 t_window=64"),
         (build.FIRE_BLOCK, rows["sweep"]["fire"],

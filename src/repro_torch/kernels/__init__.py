@@ -1,8 +1,9 @@
 # Hand-written Hopper kernels for the TNN column hot spots, each beside its
 # plain PyTorch version:
 #   fused_column — the training hot path: RNL fire + k-WTA + expected STDP
-#                  for one volley in ONE kernel (csrc/fused_step.cu), for a
-#                  block of volleys (csrc/fused_block.cu), and the padded
+#                  for a whole single-column fit in ONE launch
+#                  (csrc/fused_step.cu), for a block of volleys of the
+#                  padded sweep (csrc/fused_block.cu), and the padded
 #                  sweep's batched assignment fire (csrc/fire_block.cu)
 #   rnl_response — batched RNL firing times (csrc/rnl_fire.cu)
 #   stdp_update  — the expected STDP update of one volley (csrc/stdp_update.cu)

@@ -151,7 +151,7 @@ class CudaKernel:
 
 def grid_workspace(w: torch.Tensor, resident: bool) -> Optional[torch.Tensor]:
     """The integer fire grid's workspace of the device-memory layout (the
-    shape of ``w``) of ``fused_step``, ``rnl_fire`` and ``fire_block``;
+    shape of ``w``) of ``rnl_fire`` and ``fire_block``;
     None when the kernel keeps the grid in shared memory."""
     return None if resident else torch.empty_like(w)
 
@@ -204,8 +204,10 @@ FUSED_STEP = CudaKernel(
     name="fused_step",
     source="fused_step.cu",
     symbol="tnn_fused_step",
-    argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _I, _F, _P),
     replaces="src/repro/kernels/fused_column.py:468 _fused_kernel",
+    smem_argtypes=(_I, _I, _I, _I),  # p, q, t_window, resident
 )
 
 RNL_FIRE = CudaKernel(
@@ -238,7 +240,7 @@ STDP_UPDATE = CudaKernel(
     name="stdp_update",
     source="stdp_update.cu",
     symbol="tnn_stdp_update",
-    argtypes=(_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _F, _P),
+    argtypes=(_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _F, _I, _I, _P),
     replaces="src/repro/kernels/stdp_update.py:28 _stdp_kernel",
     smem_argtypes=None,  # no shared memory
 )

@@ -72,16 +72,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 // wi[i * q + j]) >= threshold, else t_end.  Lanes split the synapses.
 // V is nondecreasing in t, so this equals the count of sub-threshold
 // cycles in [0, t_end) that the TPU kernels accumulate.  Inputs at or
-// past t_end contribute nothing inside the window.
+// past t_end contribute nothing inside the window.  Times are f32 or
+// int32 (converted exactly: every time below 2^24 is); with kRound the
+// weights are float and each is rounded to the grid as it is read
+// (fire_grid), so no integer grid needs to be kept.
+template <bool kRound = false, typename T>
 __device__ __forceinline__ int warp_fire_time(
-    const float* wi, int q, int j, const float* ti, int p,
-    float threshold, int t_end) {
+    const float* wi, int q, int j, const T* ti, int p,
+    float threshold, int t_end, float w_max = 0.0f) {
   const int lane = threadIdx.x % kWarp;
   for (int t = 0; t < t_end; ++t) {
     const float tf = static_cast<float>(t);
     float part = 0.0f;
-    for (int i = lane; i < p; i += kWarp)
-      part += fminf(fmaxf(tf - ti[i], 0.0f), wi[i * q + j]);
+    for (int i = lane; i < p; i += kWarp) {
+      const float g = kRound ? fire_grid(wi[i * q + j], w_max) : wi[i * q + j];
+      part += fminf(fmaxf(tf - static_cast<float>(ti[i]), 0.0f), g);
+    }
     if (warp_sum(part) >= threshold) return t;
   }
   return t_end;

@@ -5,12 +5,15 @@ folds one volley at a time into the weights, so training is a loop over
 epochs x volleys whose body is ONE fused column step.  The step has two
 lowerings behind the same semantics:
 
-* ``fused_step_padded`` — the wrapper of the CUDA kernel
-  ``csrc/fused_step.cu`` (port of the JAX package's ``_fused_kernel``):
-  one launch per volley for a batch of D designs, per-design scalars
+* ``fused_fit_padded`` — the wrapper of the CUDA kernel
+  ``csrc/fused_step.cu`` (port of the JAX package's ``_fused_kernel`` and
+  of the scan ``_fused_fit_scan`` around it): ONE launch folds a whole
+  fit, epochs x volleys, for a batch of D designs, per-design scalars
   (threshold, effective ``t_max``, live-neuron count, STDP mus) read from
-  a runtime ``[D, 6]`` operand array (``design_operands``).  On CPU
-  tensors it takes its plain version, ``fused_step_padded_plain``.
+  a runtime ``[D, 6]`` operand array (``design_operands``);
+  ``fused_step_padded`` is its one-volley call.  On CPU tensors they take
+  their plain versions, ``fused_fit_padded_plain`` (a loop of
+  ``fused_step_padded_plain``) and ``fused_step_padded_plain``.
 * ``fused_step_ref`` — the plain PyTorch lowering of one design's step
   (dense sub-threshold count over the time window), the counterpart of the
   JAX package's reference lowering.  Exact for RNL/SNL: V(t) is
@@ -213,19 +216,24 @@ def _eps(w_max: int) -> float:
     return float(np.float32(1.0 / (2 * w_max)))
 
 
-def _check_cuda_operands(name: str, tensors: tuple) -> None:
-    """The wrappers' common checks: one CUDA device, f32, contiguous."""
-    dev = tensors[0].device
-    if not all(t.is_cuda and t.device == dev for t in tensors):
+def _check_cuda_operands(name: str, tensors: tuple, times: tuple = ()) -> None:
+    """The wrappers' common checks: one CUDA device, contiguous, f32
+    ``tensors`` and int32 or f32 ``times``."""
+    every = tuple(tensors) + tuple(times)
+    dev = every[0].device
+    if not all(t.is_cuda and t.device == dev for t in every):
         raise ValueError(
             f"{name} needs its tensors on one CUDA device (or all on the "
-            f"CPU), got {[str(t.device) for t in tensors]}"
+            f"CPU), got {[str(t.device) for t in every]}"
         )
-    if any(t.dtype != torch.float32 for t in tensors):
+    if any(t.dtype != torch.float32 for t in tensors) or any(
+        t.dtype not in (TIME_DTYPE, torch.float32) for t in times
+    ):
         raise ValueError(
-            f"{name} needs float32 tensors, got {[t.dtype for t in tensors]}"
+            f"{name} needs float32 tensors and int32 or float32 times, got "
+            f"{[t.dtype for t in every]}"
         )
-    if any(not t.is_contiguous() for t in tensors):
+    if any(not t.is_contiguous() for t in every):
         raise ValueError(f"{name} needs contiguous tensors")
 
 
@@ -265,12 +273,13 @@ def fused_step_padded(
     wta_k: int,
     stabilize: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One fused step for D designs: the wrapper of ``csrc/fused_step.cu``.
+    """One fused step for D designs: the one-volley call of the kernel
+    ``csrc/fused_step.cu`` (``fused_fit_padded`` with N = 1, one epoch).
 
     Args:
       w: [D, p, q] f32 weights (pad rows/columns zero).
-      t_in: [D, p] f32 volley per design; a time >= that design's runtime
-        ``t_max`` is silent.
+      t_in: [D, p] f32 or int32 volley per design; a time >= that design's
+        runtime ``t_max`` is silent.
       operands: [D, N_OPERANDS] f32 runtime design operands
         (``design_operands``); every ``t_max`` <= ``t_window``.
       t_window: evaluation length of the envelope.
@@ -279,44 +288,152 @@ def fused_step_padded(
       (w_new [D, p, q], y [D, q] f32 post-WTA winner times).
 
     CPU tensors take ``fused_step_padded_plain``; CUDA tensors launch the
-    kernel (or raise), in its device-memory layout where the weights and
-    their grid do not fit in shared memory beside the volley.
+    kernel (or raise).
     """
+    kw = dict(t_window=t_window, w_max=w_max, wta_k=wta_k, stabilize=stabilize)
     tensors = (w, t_in, operands)
     if all(t.device.type == "cpu" for t in tensors):
-        return fused_step_padded_plain(
-            w, t_in, operands, t_window=t_window, w_max=w_max,
-            wta_k=wta_k, stabilize=stabilize,
-        )
-    _check_cuda_operands("fused_step_padded", tensors)
+        return fused_step_padded_plain(w, t_in, operands, **kw)
+    if t_in.dim() != 2:
+        raise ValueError(f"t_in must be [D, p], got {tuple(t_in.shape)}")
+    w_out, y, _ = _launch_fused_fit(
+        "fused_step_padded", w, t_in[:, None], operands, epochs=1,
+        trace=False, last=True, **kw)
+    return w_out, y
+
+
+def fused_fit_padded_plain(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    epochs: int,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    stabilize: bool,
+    trace: bool = False,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the folded kernel (same arguments):
+    ``fused_step_padded_plain`` over epochs x volleys, in order."""
+    d, n, _ = xs.shape
+    xf = xs.to(torch.float32)  # exact: every time is below 2^24
+    ys = (torch.empty((d, epochs, n, w.shape[2]), dtype=TIME_DTYPE,
+                      device=w.device) if trace else None)
+    for e in range(epochs):
+        for i in range(n):
+            w, y = fused_step_padded_plain(
+                w, xf[:, i], operands, t_window=t_window, w_max=w_max,
+                wta_k=wta_k, stabilize=stabilize,
+            )
+            if trace:
+                ys[:, e, i] = y.to(TIME_DTYPE)
+    return w, ys
+
+
+def fused_fit_padded(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    epochs: int,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    stabilize: bool,
+    trace: bool = False,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A whole online-STDP fit for D designs in ONE launch of
+    ``csrc/fused_step.cu``: epochs x N volleys folded in order (the
+    counterpart of the JAX package's ``_fused_fit_scan`` over
+    ``_fused_kernel``).
+
+    Args:
+      w: [D, p, q] f32 weights (pad rows/columns zero).
+      xs: [D, N, p] int32 or f32 volleys; a time >= that design's runtime
+        ``t_max`` is silent.
+      operands: [D, N_OPERANDS] f32 runtime design operands.
+      trace: also return every volley's post-WTA winner times.
+
+    Returns:
+      (w_new [D, p, q], ys [D, epochs, N, q] ``TIME_DTYPE`` when ``trace``
+      else None).
+
+    CPU tensors take ``fused_fit_padded_plain``; CUDA tensors launch the
+    kernel once (or raise), with no host sync.  A design whose volleys are
+    int32 with every time >= 0 fires by the kernel's slope histogram; f32
+    volleys, and int32 volleys with a negative time, by its ramp sum: each
+    thread block decides for its own design.  The kernel writes the trace itself, and keeps the
+    weights in shared memory for the whole fit where they fit beside two
+    volleys and the histogram (``build.FUSED_STEP.resident``), else in
+    device memory.
+    """
+    kw = dict(epochs=epochs, t_window=t_window, w_max=w_max, wta_k=wta_k,
+              stabilize=stabilize, trace=trace)
+    tensors = (w, xs, operands)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_fit_padded_plain(w, xs, operands, **kw)
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be [D, N, p], got {tuple(xs.shape)}")
+    w_out, _, ys = _launch_fused_fit("fused_fit_padded", w, xs, operands,
+                                     last=False, **kw)
+    return w_out, ys
+
+
+def _launch_fused_fit(
+    name: str,
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    epochs: int,
+    t_window: int,
+    w_max: int,
+    wta_k: int,
+    stabilize: bool,
+    trace: bool,
+    last: bool,
+) -> tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Checks the operands and launches the folded kernel once: (w_new,
+    the last volley's winner times [D, q] f32 when ``last``, the trace
+    [D, epochs, N, q] when ``trace``)."""
+    _check_cuda_operands(name, (w, operands), (xs,))
     if w.dim() != 3:
         raise ValueError(f"w must be [D, p, q], got {tuple(w.shape)}")
     d, p, q = w.shape
-    if tuple(t_in.shape) != (d, p) or tuple(operands.shape) != (d, N_OPERANDS):
+    n = xs.shape[1]
+    if (xs.shape[0], xs.shape[2]) != (d, p) or tuple(operands.shape) != (
+        d, N_OPERANDS
+    ):
         raise ValueError(
-            f"fused_step_padded: w {tuple(w.shape)} needs t_in {(d, p)} and "
-            f"operands {(d, N_OPERANDS)}, got {tuple(t_in.shape)} and "
+            f"{name}: w {tuple(w.shape)} needs volleys {(d, n, p)} and "
+            f"operands {(d, N_OPERANDS)}, got {tuple(xs.shape)} and "
             f"{tuple(operands.shape)}"
         )
     if wta_k < 1:
         raise ValueError(f"wta_k must be >= 1, got {wta_k}")
+    if epochs < 0:
+        raise ValueError(f"epochs must be >= 0, got {epochs}")
     k = build.FUSED_STEP
-    resident = k.resident(f"a {p} x {q} envelope", p, q)
+    resident = k.resident(f"a {p} x {q} envelope", p, q, int(t_window))
+    int_times = xs.dtype == TIME_DTYPE
     w_out = torch.empty_like(w)
-    y = torch.empty((d, q), dtype=torch.float32, device=w.device)
+    y = torch.empty((d, q), dtype=torch.float32, device=w.device) if last else None
+    ys = (torch.empty((d, epochs, n, q), dtype=TIME_DTYPE, device=w.device)
+          if trace else None)
     if d == 0:
-        return w_out, y
-    grid = build.grid_workspace(w, resident)
+        return w_out, y, ys
     fn = k.function()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
-        rc = fn(w.data_ptr(), t_in.data_ptr(), operands.data_ptr(),
-                w_out.data_ptr(), y.data_ptr(), build.ptr(grid), int(resident),
-                d, p, q, int(t_window), int(w_max), int(wta_k),
-                int(bool(stabilize)), _eps(w_max), stream)
+        rc = fn(w.data_ptr(), xs.data_ptr(), operands.data_ptr(),
+                w_out.data_ptr(), build.ptr(y), build.ptr(ys), int(resident),
+                int(int_times), d, n, int(epochs), p, q,
+                int(t_window), int(w_max), int(wta_k), int(bool(stabilize)),
+                _eps(w_max), stream)
     build.check_launch(k, rc)
-    return w_out, y
+    return w_out, y, ys
 
 
 # ------------------------------------------------------------- fused fit
@@ -331,16 +448,17 @@ def fit_fused(
     """Online STDP over [N, p] volleys: epochs x volleys fused steps.
 
     ``lowering='reference'`` folds ``fused_step_ref`` (integer-grid fire,
-    as the kernel); ``'cuda'`` calls ``fused_step_padded`` once per volley
-    (D = 1), which launches the kernel on CUDA tensors.  Returns
-    (params, ys) where ys is [epochs, N, q] int32 winner times when
-    ``trace`` else None.  ``params`` is not modified.
+    as the kernel); ``'cuda'`` calls ``fused_fit_padded`` once (D = 1),
+    which launches the kernel once for the whole fit on CUDA tensors.
+    Volleys may be integer or float.  Returns (params, ys) where ys is
+    [epochs, N, q] int32 winner times when ``trace`` else None.
+    ``params`` is not modified.
     """
     check_fusable(cfg, lowering)
     w = params["w"].to(torch.float32).clone()
     n = x.shape[0]
-    ys = []
     if lowering == "reference":
+        ys = []
         for _ in range(epochs):
             for xt in x:
                 w, y = fused_step_ref(
@@ -351,29 +469,25 @@ def fit_fused(
                 )
                 if trace:
                     ys.append(y)
-    else:
-        operands = design_operands(
-            [cfg.neuron.threshold], [cfg.t_max], [cfg.q], cfg.stdp.mu_capture,
-            cfg.stdp.mu_backoff, cfg.stdp.mu_search, device=w.device,
-        )
-        xs = x.to(torch.float32).contiguous()
-        w = w[None].contiguous()
-        for _ in range(epochs):
-            for i in range(n):
-                w, y = fused_step_padded(
-                    w, xs[i : i + 1], operands, t_window=cfg.t_max,
-                    w_max=cfg.neuron.w_max, wta_k=cfg.wta.k,
-                    stabilize=cfg.stdp.stabilizer == "half",
-                )
-                if trace:
-                    ys.append(y[0])
-        w = w[0]
-    if not trace:
-        return {"w": w}, None
-    if not ys:
-        return {"w": w}, torch.empty((epochs, n, cfg.q), dtype=TIME_DTYPE,
-                                     device=w.device)
-    return {"w": w}, torch.stack(ys).to(TIME_DTYPE).reshape(epochs, n, cfg.q)
+        if not trace:
+            return {"w": w}, None
+        if not ys:
+            return {"w": w}, torch.empty((epochs, n, cfg.q), dtype=TIME_DTYPE,
+                                         device=w.device)
+        return {"w": w}, torch.stack(ys).to(TIME_DTYPE).reshape(epochs, n, cfg.q)
+    operands = design_operands(
+        [cfg.neuron.threshold], [cfg.t_max], [cfg.q], cfg.stdp.mu_capture,
+        cfg.stdp.mu_backoff, cfg.stdp.mu_search, device=w.device,
+    )
+    # int32 and f32 volleys go to the kernel as they are; any other dtype
+    # as f32, the plain versions' working type
+    xs = x if x.dtype in (TIME_DTYPE, torch.float32) else x.to(torch.float32)
+    w_new, ys = fused_fit_padded(
+        w[None], xs[None].contiguous(), operands, epochs=epochs,
+        t_window=cfg.t_max, w_max=cfg.neuron.w_max, wta_k=cfg.wta.k,
+        stabilize=cfg.stdp.stabilizer == "half", trace=trace,
+    )
+    return {"w": w_new[0]}, (ys[0] if trace else None)
 
 
 # ------------------------------------------------------- the padded half

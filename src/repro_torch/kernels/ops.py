@@ -7,7 +7,8 @@ versions (see ``repro_torch.core.backend.lowering``).  The JAX package's
 
 ``column_forward`` and ``stdp_step`` are the unfused volley step (RNL
 fire + WTA, then the STDP update, one kernel each); ``train_volleys``
-folds the same online rule through the fused step, one kernel per volley.
+folds the same online rule through the fused step, one launch for the
+whole batch of volleys.
 """
 from __future__ import annotations
 
@@ -59,8 +60,8 @@ def stdp_step(
 def train_volleys(params: dict, x: torch.Tensor, cfg: ColumnConfig) -> dict:
     """Online STDP over a batch of volleys x [B, p] through the fused
     column step: integer-grid fire, expected STDP, index tie-break, one
-    epoch.  The fused-step kernel on the card, its plain version on the
-    CPU (``fused_column.fit_fused``)."""
+    epoch.  One launch of the fused-step kernel on the card, its plain
+    version on the CPU (``fused_column.fit_fused``)."""
     new_params, _ = fused_column.fit_fused(
         params, x, cfg, epochs=1, lowering=backend_lib.lowering(params["w"]),
         trace=False,

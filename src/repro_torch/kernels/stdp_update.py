@@ -54,7 +54,8 @@ def stdp_update(
 
     CPU tensors take ``stdp_update_plain``; CUDA tensors launch the kernel
     (or raise).  Times are int32 or float32 (a time >= ``t_max`` is
-    silent).  ``w`` is not modified.
+    silent), each vector contiguous; the kernel reads them as they are.
+    ``w`` is not modified.
     """
     tensors = (w, x_times, y_times)
     if all(t.device.type == "cpu" for t in tensors):
@@ -81,11 +82,9 @@ def stdp_update(
             f"stdp_update needs float32 w and int32/float32 times, got "
             f"{[t.dtype for t in tensors]}"
         )
-    if not w.is_contiguous():
-        raise ValueError("stdp_update needs a contiguous w")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("stdp_update needs contiguous w, x and y")
     p, q = w.shape
-    x = x_times.to(torch.float32).contiguous()
-    y = y_times.to(torch.float32).contiguous()
     w_out = torch.empty_like(w)
     if p == 0 or q == 0:
         return w_out
@@ -94,9 +93,11 @@ def stdp_update(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         k.launches += 1
-        rc = fn(w.data_ptr(), x.data_ptr(), y.data_ptr(), w_out.data_ptr(),
-                p, q, float(t_max), float(mu_capture), float(mu_backoff),
-                float(mu_search), int(w_max), int(bool(stabilize)),
-                _eps(w_max), stream)
+        rc = fn(w.data_ptr(), x_times.data_ptr(), y_times.data_ptr(),
+                w_out.data_ptr(), p, q, float(t_max), float(mu_capture),
+                float(mu_backoff), float(mu_search), int(w_max),
+                int(bool(stabilize)), _eps(w_max),
+                int(x_times.dtype == torch.int32),
+                int(y_times.dtype == torch.int32), stream)
     build.check_launch(k, rc)
     return w_out

@@ -91,18 +91,87 @@ def test_rnl_fire_kernel_matches_plain(cuda_device, b, p, q):
     assert torch.equal(got.cpu(), ref)
 
 
-def test_fit_fused_on_card_matches_cpu_reference(cuda_device):
+@pytest.mark.parametrize("kind", ["int", "half", "neg"])
+def test_fit_fused_on_card_matches_cpu_reference(cuda_device, kind):
+    """A whole fit, one launch, bit-equal to the CPU reference lowering:
+    int32 volleys (slope form), float volleys with non-integer times and
+    int32 volleys with negative times (ramp sum)."""
     cfg = ColumnConfig(p=40, q=6, t_max=32, neuron=NeuronConfig(threshold=30.0))
     rng = np.random.default_rng(3)
     w0 = torch.from_numpy(_half_grid_weights(rng, (40, 6)))
-    x = torch.from_numpy(rng.integers(0, 36, (20, 40)).astype(np.int32))
+    x = torch.from_numpy(_volleys(rng, kind, (20, 40), 32))
     assert backend.lowering(w0.to(cuda_device)) == "cuda"
     p_ref, y_ref = fused_column.fit_fused({"w": w0}, x, cfg, 3, "reference", True)
+    before = build.FUSED_STEP.launches
     p_k, y_k = fused_column.fit_fused(
         {"w": w0.to(cuda_device)}, x.to(cuda_device), cfg, 3, "cuda", True
     )
+    torch.cuda.synchronize()
+    assert build.FUSED_STEP.launches == before + 1
     assert torch.equal(y_k.cpu(), y_ref)
     assert torch.equal(p_k["w"].cpu(), p_ref["w"])
+
+
+def _volleys(rng, kind, shape, t_max):
+    """int32 times with silent ones (>= t_max), the same shifted by a half
+    (f32, non-integer), int32 times down to -8, or (``mixed``) int32
+    times down to -8 in the first design only."""
+    if kind == "int":
+        return rng.integers(0, t_max + 8, shape).astype(np.int32)
+    if kind == "half":
+        return (rng.integers(0, t_max + 8, shape) + 0.5).astype(np.float32)
+    x = rng.integers(-8, t_max + 8, shape).astype(np.int32)
+    if kind == "mixed":
+        x[1:] = np.abs(x[1:])
+    return x
+
+
+FIT_CASES = [
+    # (d, p, q, n, epochs, volleys, trace, wta_k, stabilize, hetero)
+    (1, 270, 25, 900, 1, "int", True, 1, True, False),    # WordSynonyms
+    (1, 270, 25, 900, 3, "half", False, 1, True, False),
+    (1, 270, 25, 7, 3, "int", True, 2, False, False),
+    (4, 270, 25, 7, 3, "int", True, 2, True, True),
+    (4, 270, 25, 7, 3, "neg", False, 1, True, True),
+    (4, 270, 25, 7, 3, "mixed", True, 2, True, True),     # a form per design
+    (4, 65, 40, 7, 3, "half", True, 1, True, True),       # q wider than a warp
+    (4, 65, 40, 1, 1, "int", True, 2, False, True),
+    (1, 637, 2, 7, 3, "int", True, 1, True, False),       # Lightning2
+    (1, 637, 50, 7, 3, "neg", True, 2, True, False),      # resident
+    (2, 650, 130, 7, 1, "int", True, 1, True, True),      # device memory
+    (2, 650, 130, 7, 1, "half", False, 2, False, True),
+    (2, 650, 130, 7, 1, "mixed", True, 1, True, True),
+    (1, 4000, 8, 7, 3, "int", True, 2, True, False),      # resident
+    (1, 4000, 16, 7, 3, "neg", True, 1, True, False),     # device memory
+    (1, 4000, 16, 1, 1, "int", False, 1, False, False),
+    (4, 96, 5, 7, 0, "int", True, 1, True, True),         # no epoch
+]
+
+
+@pytest.mark.parametrize("case", FIT_CASES, ids=lambda c: "d{}_{}x{}_n{}_e{}_{}_t{}_k{}_s{}".format(
+    *c[:6], int(c[6]), c[7], int(c[8])))
+def test_fused_fit_kernel_matches_plain(cuda_device, case):
+    """The folded kernel, one launch, against the plain fold: weights and
+    trace (or the last winner times) bit-equal, in both layouts, across
+    epochs, for the three volley kinds."""
+    d, p, q, n, epochs, kind, trace, k, stab, hetero = case
+    w, _, ops = _fused_case(d, p, q, 64, seed=p + q + n + d, hetero=hetero)
+    rng = np.random.default_rng(p * n + epochs)
+    xs = torch.from_numpy(_volleys(rng, kind, (d, n, p), 64))
+    kw = dict(epochs=epochs, t_window=64, w_max=7, wta_k=k, stabilize=stab, trace=trace)
+    w_ref, y_ref = fused_column.fused_fit_padded_plain(w, xs, ops, **kw)
+    before = build.FUSED_STEP.launches
+    w_k, y_k = fused_column.fused_fit_padded(
+        w.to(cuda_device), xs.to(cuda_device), ops.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert build.FUSED_STEP.launches == before + 1
+    assert (y_k is None) == (not trace)
+    if trace:
+        assert y_k.shape == (d, epochs, n, q) and y_k.dtype == torch.int32
+        assert torch.equal(y_k.cpu(), y_ref)
+    assert torch.equal(w_k.cpu(), w_ref), (w_k.cpu() - w_ref).abs().max()
+    if epochs:
+        assert not torch.equal(w_k.cpu(), w)
 
 
 def test_wrappers_refuse_bad_operands(cuda_device):
@@ -114,8 +183,11 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         fused_column.fused_step_padded(w.double(), t, ops, **kw)
     with pytest.raises(ValueError):
         fused_column.fused_step_padded(w, t.cpu(), ops, **kw)
-    # 4000 x 8 does not fit in shared memory: the device-memory layout
-    wb, tb, ob = _fused_case(1, 4000, 8, 64, seed=4000, hetero=False)
+    with pytest.raises(ValueError):
+        fused_column.fused_fit_padded(w, t[:, None].long(), ops, epochs=1, **kw)
+    # 4000 x 16 does not fit in shared memory: the device-memory layout
+    assert not build.FUSED_STEP.resident("", 4000, 16, 64)
+    wb, tb, ob = _fused_case(1, 4000, 16, 64, seed=4000, hetero=False)
     bkw = dict(kw, t_window=64)
     w_ref, y_ref = fused_column.fused_step_padded_plain(wb, tb, ob, **bkw)
     w_k, y_k = fused_column.fused_step_padded(
@@ -343,9 +415,9 @@ def test_fit_scan_padded_refuses_float_volleys_on_the_card(cuda_device):
 
 
 # ------------------------------------- the device-memory layout
-# (p, q): too wide for shared memory in the resident layout; at 637 x 50
-# only fused_step is (the fire kernels and fused_block stay resident), at
-# 4000 x 8 all but fused_block
+# (p, q): too wide for shared memory in the resident layout for some of
+# the four fire kernels: at 650 x 130 for all four, at 4000 x 8 for
+# rnl_fire and fire_block; at 637 x 50 every kernel stays resident
 LAYOUT_SHAPES = [(650, 130), (4000, 8), (637, 50)]
 
 
@@ -355,9 +427,10 @@ def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
     their weights in shared memory: bit-equal to their plain versions, in
     the launches their layouts take."""
     resident = {k.name: k.resident("", p, q) for k in (
-        build.FUSED_STEP, build.RNL_FIRE, build.FIRE_BLOCK)}
+        build.RNL_FIRE, build.FIRE_BLOCK)}
+    resident["fused_step"] = build.FUSED_STEP.resident("", p, q, 64)
     resident["fused_block"] = build.FUSED_BLOCK.resident("", p, q, 1, 64)
-    assert not resident["fused_step"]
+    assert resident["fused_step"] == ((p, q) != (650, 130))
     assert resident["fused_block"] == ((p, q) != (650, 130))
     assert resident["rnl_fire"] == resident["fire_block"] == ((p, q) == (637, 50))
 
@@ -394,17 +467,20 @@ def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
 STDP_SHAPES = [(13, 3), (270, 25), (650, 130), (7, 1), (540, 50)]
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["int32", "f32"])
+@pytest.mark.parametrize("dtypes", [(torch.int32, torch.int32), (torch.float32, torch.float32),
+                                    (torch.int32, torch.float32), (torch.float32, torch.int32)],
+                         ids=["int32", "f32", "int32_f32", "f32_int32"])
 @pytest.mark.parametrize("stabilize", [True, False], ids=["stab", "plain"])
 @pytest.mark.parametrize("p,q", STDP_SHAPES)
-def test_stdp_update_kernel_matches_plain(cuda_device, p, q, stabilize, dtype):
+def test_stdp_update_kernel_matches_plain(cuda_device, p, q, stabilize, dtypes):
+    """x and y each int32 or f32, read by the kernel as they are."""
     rng = np.random.default_rng(p * 7 + q)
     w = rng.uniform(0, 7, (p, q)).astype(np.float32)
     extra = np.array([-0.5, 7.5, 3.5, 0.5, 9.0, 6.5], np.float32)
     w.flat[: min(w.size, extra.size)] = extra[: w.size]
     w = torch.from_numpy(w)
-    x = torch.from_numpy(rng.integers(0, 22, p)).to(dtype)
-    y = torch.from_numpy(rng.integers(0, 22, q)).to(dtype)
+    x = torch.from_numpy(rng.integers(0, 22, p)).to(dtypes[0])
+    y = torch.from_numpy(rng.integers(0, 22, q)).to(dtypes[1])
     args = (0.5, 0.5, 1 / 1024, 7, 16, stabilize)
     ref = stdp_update.stdp_update_plain(w, x, y, *args)
     before = build.STDP_UPDATE.launches
@@ -428,6 +504,10 @@ def test_stdp_update_refuses_bad_operands(cuda_device):
         stdp_update.stdp_update(w, x[:7], y, *args)
     with pytest.raises(ValueError):
         stdp_update.stdp_update(w.t(), y, x, *args)
+    with pytest.raises(ValueError):  # the kernel reads the times as they lie
+        stdp_update.stdp_update(w, torch.zeros((8, 2), device=cuda_device)[:, 0], y, *args)
+    with pytest.raises(ValueError):
+        stdp_update.stdp_update(w, x.long(), y, *args)
     stdp_update.stdp_update(w, x, y, *args)  # the same call, well formed
 
 
@@ -437,7 +517,9 @@ def test_ops_entry_points_on_card_match_cpu(cuda_device):
     w0 = torch.from_numpy(rng.uniform(0, 7, (96, 4)).astype(np.float32))
     x = torch.from_numpy(rng.integers(0, 70, (30, 96)).astype(np.int32))
     fused_cpu = ops.train_volleys({"w": w0}, x, cfg)["w"]
+    before = build.FUSED_STEP.launches
     fused = ops.train_volleys({"w": w0.to(cuda_device)}, x.to(cuda_device), cfg)["w"]
+    assert build.FUSED_STEP.launches == before + 1  # one launch for all 30 volleys
     w, xd = w0.to(cuda_device), x.to(cuda_device)
     before = (build.RNL_FIRE.launches, build.STDP_UPDATE.launches)
     for i in range(x.shape[0]):

@@ -152,9 +152,11 @@ def test_flash_elementwise_bound_separates_rounding_from_a_wrong_tile():
 
 # ------------------------------------- shared-memory layouts (the repair)
 # Each kernel's csrc formula, with ``resident`` its layout argument.
-def _fused_step_smem(p, q, resident=True):
-    # csrc/fused_step.cu: tnn_fused_step_smem_bytes
-    return (2 * p * q * resident + p + q) * 4 + 4 * q
+def _fused_step_smem(p, q, t_window, resident=True):
+    # csrc/fused_step.cu: tnn_fused_step_smem_bytes (the weights, two
+    # volleys in flight, no integer grid; the fire's slope histogram, q
+    # rows of t_window + 1 ints)
+    return (p * q * resident + 2 * p + q) * 4 + (q + q * (t_window + 1)) * 4
 
 
 def _fused_block_smem(p, q, v_blk, t_window, resident=True):
@@ -184,7 +186,7 @@ def smem_formulas(monkeypatch):
 
 def _layouts(p, q) -> dict:
     return {
-        "fused_step": build.FUSED_STEP.resident("", p, q),
+        "fused_step": build.FUSED_STEP.resident("", p, q, 64),
         "fused_block": build.FUSED_BLOCK.resident("", p, q, 1, 64),
         "rnl_fire": build.RNL_FIRE.resident("", p, q),
         "fire_block": build.FIRE_BLOCK.resident("", p, q),
@@ -194,18 +196,19 @@ def _layouts(p, q) -> dict:
 @pytest.mark.parametrize("p,q,want", [
     (270, 25, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
     (540, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
-    # Lightning2 at q = 50: a volley needs 257,748 B beside the weights and
-    # their grid in fused_step, 143,348 B beside the weights and the
-    # histogram in fused_block, while the fire kernels' grid and tile need
-    # 147,784 B
-    (637, 50, dict(fused_step=False, fused_block=True, rnl_fire=True, fire_block=True)),
+    # Lightning2 at q = 50: a fit needs 145,896 B for the weights, two
+    # volleys and the histogram in fused_step, 143,348 B beside the
+    # weights and the histogram in fused_block, while the fire kernels'
+    # grid and tile need 147,784 B
+    (637, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
     (650, 130, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
-    (4000, 8, dict(fused_step=False, fused_block=True, rnl_fire=False, fire_block=False)),
+    (4000, 8, dict(fused_step=True, fused_block=True, rnl_fire=False, fire_block=False)),
+    (4000, 16, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
     (6000, 10, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
 ])
 def test_kernels_take_the_resident_layout_wherever_it_fits(smem_formulas, p, q, want):
     assert _layouts(p, q) == want
-    assert _fused_step_smem(637, 50) == 257_748
+    assert _fused_step_smem(637, 50, 64) == 145_896
     assert _fused_block_smem(637, 50, 1, 64) == 143_348
     assert _rnl_fire_smem(637, 50) == _fire_block_smem(637, 50) == 147_784
 
@@ -229,4 +232,4 @@ def test_device_layout_blocks_split_by_the_same_formula(smem_formulas):
 
 def test_layout_refuses_what_fits_in_neither(smem_formulas):
     with pytest.raises(ValueError, match="even with its weights in device memory"):
-        build.FUSED_STEP.resident("a 60000 x 8 envelope", 60000, 8)
+        build.FUSED_STEP.resident("a 60000 x 8 envelope", 60000, 8, 64)
