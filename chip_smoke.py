@@ -20,7 +20,11 @@ JAX or the JAX package.  Phases, each of which asserts:
    layouts): winner times, trace and weights bit-equal;
 3. the RNL-fire kernel against its plain version (B = 905 at 270 x 25,
    B = 121 at 637 x 2, B = 121 at 650 x 130 in the device-memory
-   layout): equal;
+   layout; int32 times (the slope histogram), f32 x + 0.5 and int32
+   times with negative ones (the ramp sum), and a batch with one
+   negative volley (both forms in one launch)): equal; once phase 7 has
+   run, again on each of its 'pallas' calls' own inputs, whose times
+   must reach the kernel as int32;
 4. the volley-block kernel (its fire the integer slope histogram)
    against its plain version (D = 1 and D = 4 heterogeneous envelopes,
    v_blk 1, 7 and 32 with tails, wta_k 1 and 2, stabilizer on and off, a
@@ -32,17 +36,18 @@ JAX or the JAX package.  Phases, each of which asserts:
    kernel's shared-memory formula;
 5. the batched-fire kernel against its plain version (D = 4
    heterogeneous, N = 905 at 270 x 50 and 637 x 2, N = 121 at 650 x 130
-   in the device-memory layout): times and ids equal;
-   once phase 8 has run, again on the very inputs of each of the
+   in the device-memory layout; the four kinds of times of phase 3, the
+   mixed launch with negative times in one design only): times and ids
+   equal; once phase 8 has run, again on the very inputs of each of the
    integer-grid sweep's launches (each bucket's trained weights and
-   volleys);
+   int32 volleys);
 6. the STDP-update kernel against its plain version (13 x 3, 270 x 25,
    650 x 130, 7 x 1 and 540 x 50; stabilizer on and off; int32 and f32
    times with silent entries; weights outside [0, 7] and at x.5): equal;
 7. the single-column path: ``simulator.cluster_time_series`` on all
    seven Table II designs, full synthetic doubles, 8 epochs, under
    mode='auto' and mode='pallas', with launch counters read around it
-   (one fused-step launch per fit);
+   (one fused-step launch per fit) and the RNL-fire calls recorded;
    WordSynonyms and Lightning2 again on the CPU from the same initial
    weights, which must give the same assignments and Rand index;
 8. the sweep path, launch counters read around it: two 12-design
@@ -103,16 +108,20 @@ JAX or the JAX package.  Phases, each of which asserts:
 17. timing at the paths' shapes with CUDA events, beside each kernel's
     bound on the card: the fused-step kernel on each Table II design's
     whole fit in one launch (ms per launch, us per volley; at
-    WordSynonyms beside the plain fold over a 32-volley prefix and the
-    fit's bound, recounted volley by volley in the slope form), and on
-    one volley with int32 and with f32 times; the volley-block kernel on the default sweep's
-    first launch (D = 12 at 270 x 50, v_blk = 32; bound by the slope
-    form's operations, the ramp sum's printed beside it), the batched
-    fire on each of the integer-grid sweep's launches (the kernels line
-    sums them), the STDP update on the ops path's first volley (its int32
-    times, and as f32) and at the phase 6 shapes, the four fire kernels
-    at 650 x 130 in the
-    device-memory layout, and the flash kernel at the granite prefill
+    WordSynonyms beside the plain fold over the same fit and the fit's
+    bound, recounted volley by volley in the slope form), and on one
+    volley with int32 and with f32 times; the volley-block kernel on the
+    default sweep's first launch (D = 12 at 270 x 50, v_blk = 32; bound
+    by the slope form's operations, the ramp sum's printed beside it),
+    the RNL fire on each Table II design's volleys and the batched fire
+    on each of the integer-grid sweep's launches (the kernels line sums
+    them), both on the path's int32 times (bound by the slope form's
+    operations) and on the same times as f32 (the ramp sum's bound
+    beside it), the STDP update on the ops path's first volley (its
+    int32 times, and as f32) and at the phase 6 shapes, the four fire
+    kernels at 650 x 130 in the device-memory layout (the two
+    frozen-weight ones on int32 and on f32 times), and the flash kernel
+    at the granite prefill
     shape beside its plain version and PyTorch's
     ``scaled_dot_product_attention`` (bound by the operations of its
     split-P products, the two products' alone printed beside it).
@@ -294,8 +303,11 @@ def check_fused_block(fused_column, dev) -> float:
 
 
 def check_fire_block(fused_column, dev) -> float:
-    """Phase 5: the batched-fire kernel against its plain version, times
-    and ids; returns the largest difference."""
+    """Phase 5: the batched-fire kernel against its plain version (on the
+    card, on the same tensors), times and ids, on int32 times (the slope
+    histogram), f32 x + 0.5 and int32 with negative times (the ramp sum),
+    and ``mixed`` (negative times in design 0 only: one launch, both
+    forms); returns the largest difference."""
     import numpy as np
     import torch
 
@@ -305,25 +317,27 @@ def check_fire_block(fused_column, dev) -> float:
     for n, p, q in ((905, 270, 50), (905, 637, 2), (121, 650, 130)):
         d = 4
         rng = np.random.default_rng(n + p + q)
-        w = torch.from_numpy(half_grid(rng, (d, p, q)))
-        xs = torch.from_numpy(rng.integers(0, 72, (d, n, p)).astype(np.float32))
-        tm = torch.tensor([64.0, 40.0, 33.0, 64.0])
-        qa = torch.tensor([float(q), max(1.0, q - 3.0), 1.0, float(q)])
+        w = torch.from_numpy(half_grid(rng, (d, p, q))).to(dev)
+        tm = torch.tensor([64.0, 40.0, 33.0, 64.0], device=dev)
+        qa = torch.tensor([float(q), max(1.0, q - 3.0), 1.0, float(q)], device=dev)
         ops = fused_column.design_operands(
-            rng.uniform(0.1, 0.4, d) * p * 3.5, tm.numpy(), qa.numpy(), 0.0, 0.0, 0.0)
-        ref = fused_column.fire_block_padded_plain(w, xs, ops, t_window=64, w_max=7)
-        got = fused_column.fire_block_padded(
-            w.to(dev), xs.to(dev), ops.to(dev), t_window=64, w_max=7)
-        ids = fused_column._ids_from_times(got, tm.to(dev), qa.to(dev)).cpu()
-        got = got.cpu()
-        ids_ref = fused_column._ids_from_times(ref, tm, qa)
-        dt = float((got - ref).abs().max())
-        worst = max(worst, dt)
-        log(f"[fire_block] D={d} N={n} {p}x{q} max|dt|={dt} "
-            f"ids equal={torch.equal(ids, ids_ref)} "
-            f"{layout_name(build.FIRE_BLOCK, p, q)}")
-        assert torch.equal(got, ref), "fire_block: firing times differ"
-        assert torch.equal(ids, ids_ref), "fire_block: ids differ"
+            rng.uniform(0.1, 0.4, d) * p * 3.5, tm.cpu().numpy(), qa.cpu().numpy(),
+            0.0, 0.0, 0.0, device=dev)
+        for kind in ("int", "half", "neg", "mixed"):
+            xs = torch.from_numpy(fit_volleys(rng, kind, (d, n, p), 64)).to(dev)
+            if kind == "mixed":
+                assert bool((xs[0] < 0).any()) and bool((xs[1:] >= 0).all())
+            ref = fused_column.fire_block_padded_plain(w, xs, ops, t_window=64, w_max=7)
+            got = fused_column.fire_block_padded(w, xs, ops, t_window=64, w_max=7)
+            ids = fused_column._ids_from_times(got, tm, qa)
+            ids_ref = fused_column._ids_from_times(ref, tm, qa)
+            dt = float((got - ref).abs().max())
+            worst = max(worst, dt)
+            log(f"[fire_block] D={d} N={n} {p}x{q} {kind} times={xs.dtype} "
+                f"max|dt|={dt} ids equal={torch.equal(ids, ids_ref)} "
+                f"{layout_name(build.FIRE_BLOCK, p, q, 64)}")
+            assert torch.equal(got, ref), "fire_block: firing times differ"
+            assert torch.equal(ids, ids_ref), "fire_block: ids differ"
     return worst
 
 
@@ -376,7 +390,8 @@ def record_calls(module, name: str, sink: list):
     orig = getattr(module, name)
 
     def wrapper(*args, **kwargs):
-        sink.append(([a.clone() for a in args], dict(kwargs)))
+        sink.append(([a.clone() if hasattr(a, "clone") else a for a in args],
+                     dict(kwargs)))
         return orig(*args, **kwargs)
 
     setattr(module, name, wrapper)
@@ -391,6 +406,7 @@ def check_path_fire_calls(fused_column, calls) -> float:
 
     worst = 0.0
     for (w, xs, ops), kw in calls:
+        assert xs.dtype == torch.int32, ("the path's volleys reach the kernel as", xs.dtype)
         got = fused_column.fire_block_padded(w, xs, ops, **kw)
         ref = fused_column.fire_block_padded_plain(w, xs, ops, **kw)
         ids = fused_column._ids_from_times(got, ops[:, 1], ops[:, 2])
@@ -398,25 +414,62 @@ def check_path_fire_calls(fused_column, calls) -> float:
         dt = float((got - ref).abs().max())
         worst = max(worst, dt)
         d, n, p = xs.shape
-        log(f"[fire_block] path launch D={d} N={n} {p}x{w.shape[2]} "
+        log(f"[fire_block] path launch D={d} N={n} {p}x{w.shape[2]} times={xs.dtype} "
             f"max|dt|={dt} ids equal={torch.equal(ids, ids_ref)}")
         assert torch.equal(got, ref), "fire_block: firing times differ on the path"
         assert torch.equal(ids, ids_ref), "fire_block: ids differ on the path"
     return worst
 
 
-def fire_bound(fused_column, w, xs, ops, kw) -> tuple[int, int]:
+def scatter_ops(x, g, t_end, live) -> int:
+    """Adds of the slope form's scatter for volleys x [N, p] on the grid g
+    [p, q]: one for each live synapse whose ramp rises inside [0, t_end),
+    one more where it tops out there (``live`` [q] bool)."""
+    ti = x.float()[:, :, None]
+    up = (ti >= 0) & (ti < t_end) & (g > 0) & live
+    return int(up.sum()) + int((up & (ti + g < t_end)).sum())
+
+
+def rnl_bound(rnl_response, x, w, threshold, t_max, w_max) -> tuple[int, int, int]:
+    """Bytes and operations of one RNL-fire launch on these inputs: times
+    and weights read once, firing times written once.  Operations in the
+    slope form (the scatter's adds, and two adds a cycle for each neuron's
+    scan up to its crossing, as ``block_bound`` counts them), then in the
+    ramp sum (``fire_ops``)."""
+    import torch
+
+    b, p = x.shape
+    q = w.shape[1]
+    tf = rnl_response.rnl_fire_plain(x, w, threshold, t_max, w_max)
+    g = torch.round(torch.clamp(w, 0.0, float(w_max)))
+    live = torch.ones(q, dtype=torch.bool, device=w.device)
+    slope = scatter_ops(x, g, t_max, live) + fire_ops(1, tf, t_max)
+    return 4 * (b * p + p * q + b * q), slope, fire_ops(p, tf, t_max)
+
+
+def fire_bound(fused_column, w, xs, ops, kw) -> tuple[int, int, int]:
     """Bytes and operations of one batched-fire launch on these inputs:
-    volleys, weights and operands read once, times written once; the
-    fire's min+add pairs of every live neuron up to its crossing."""
+    volleys, weights and operands read once, times written once.
+    Operations in the slope form, then in the ramp sum (min+add pairs of
+    every live neuron up to its crossing), as ``rnl_bound`` counts them;
+    t_end = min(t_window, ceil(t_max)) for each design."""
+    import math
+
     import torch
 
     d, n, p = xs.shape
     q = w.shape[2]
     tf = fused_column.fire_block_padded_plain(w, xs, ops, **kw)
     live = (torch.arange(q, device=w.device) < ops[:, 2:3, None]).long()
+    g = torch.round(torch.clamp(w, 0.0, float(kw["w_max"])))
+    n_scatter = sum(
+        scatter_ops(xs[k], g[k], min(kw["t_window"], math.ceil(float(ops[k, 1]))),
+                    live[k, 0].bool())
+        for k in range(d))
     n_bytes = 4 * (d * n * p + d * p * q + d * 6 + d * n * q)
-    return n_bytes, fire_ops(p, tf, ops[:, 1:2, None], live)
+    t_max = ops[:, 1:2, None]
+    return (n_bytes, n_scatter + fire_ops(1, tf, t_max, live),
+            fire_ops(p, tf, t_max, live))
 
 
 def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int, int]:
@@ -976,7 +1029,9 @@ def flash_bound(b, sq, hq, hkv, d, elem_bytes,
 
 def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
     """The four fire kernels at 650 x 130, where each takes its
-    device-memory layout: ms, plain ms, bound ms and what bounds it."""
+    device-memory layout: ms, plain ms, bound ms and what bounds it.
+    ``rnl_fire`` and ``fire_block`` on int32 times (bound by the slope
+    form's operations) and on the same times as f32 (the ramp sum's)."""
     import numpy as np
     import torch
 
@@ -984,7 +1039,8 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
     p, q, n_b = 650, 130, 121
     w_d = torch.from_numpy(half_grid(rng, (2, p, q))).to(dev)
     blk_d = torch.from_numpy(rng.integers(0, 72, (2, 32, p)).astype(np.float32)).to(dev)
-    xs_d = torch.from_numpy(rng.integers(0, 72, (2, n_b, p)).astype(np.float32)).to(dev)
+    xs_d = torch.from_numpy(rng.integers(0, 72, (2, n_b, p)).astype(np.int32)).to(dev)
+    xs_f = xs_d.to(torch.float32)
     ops_d = fused_column.design_operands([0.25 * p * 3.5] * 2, [64, 64], [q, q],
                                          0.5, 0.5, 1 / 1024, device=dev)
     kw_d = dict(t_window=64, w_max=7, wta_k=1, stabilize=True)
@@ -995,7 +1051,8 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
     x1f = x1.to(torch.float32)
     one_bytes, one_slope, one_ramp = fit_bound(
         fused_column, w1, x1[:, None], ops1, dict(kw_d, epochs=1), last=True)
-    tf_rnl = rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7)
+    r_bytes, r_slope, r_ramp = rnl_bound(rnl_response, xs_d[0], w_d[0], thr, 64, 7)
+    g_bytes, g_slope, g_ramp = fire_bound(fused_column, w_d, xs_d, ops_d, fkw)
     # (name, shape, kernel, plain version, (bytes, operations), reps)
     cases = (
         ("fused_step", "D=1 one volley, int32 times",
@@ -1006,28 +1063,42 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
          lambda: fused_column.fused_step_padded(w1, x1f, ops1, **kw_d),
          lambda: fused_column.fused_step_padded_plain(w1, x1f, ops1, **kw_d),
          (one_bytes, one_ramp), 200),
-        ("rnl_fire", f"B={n_b}",
+        ("rnl_fire", f"B={n_b}, int32 times",
          lambda: rnl_response.rnl_fire(xs_d[0], w_d[0], thr, 64, 7),
          lambda: rnl_response.rnl_fire_plain(xs_d[0], w_d[0], thr, 64, 7),
-         (4 * (n_b * p + p * q + n_b * q), fire_ops(p, tf_rnl, 64)), 20),
+         (r_bytes, r_slope), 20),
+        ("rnl_fire f32", f"B={n_b}, f32 times",
+         lambda: rnl_response.rnl_fire(xs_f[0], w_d[0], thr, 64, 7),
+         lambda: rnl_response.rnl_fire_plain(xs_f[0], w_d[0], thr, 64, 7),
+         (r_bytes, r_ramp), 20),
         ("fused_block", "D=2 v_blk=32",
          lambda: fused_column.fused_block_padded(w_d, blk_d, ops_d, 32, **kw_d),
          lambda: fused_column.fused_block_padded_plain(w_d, blk_d, ops_d, 32, **kw_d),
          block_bound(fused_column, w_d, blk_d, ops_d, kw_d)[:2], 5),
-        ("fire_block", f"D=2 N={n_b}",
+        ("fire_block", f"D=2 N={n_b}, int32 times",
          lambda: fused_column.fire_block_padded(w_d, xs_d, ops_d, **fkw),
          lambda: fused_column.fire_block_padded_plain(w_d, xs_d, ops_d, **fkw),
-         fire_bound(fused_column, w_d, xs_d, ops_d, fkw), 20),
+         (g_bytes, g_slope), 20),
+        ("fire_block f32", f"D=2 N={n_b}, f32 times",
+         lambda: fused_column.fire_block_padded(w_d, xs_f, ops_d, **fkw),
+         lambda: fused_column.fire_block_padded_plain(w_d, xs_f, ops_d, **fkw),
+         (g_bytes, g_ramp), 20),
     )
+    # both bounds of the two fire kernels, whichever form their times take
+    both = {"rnl_fire": (r_slope, r_ramp), "fire_block": (g_slope, g_ramp)}
     out = {}
     for name, shape, kern, plain, (n_bytes, n_ops), reps in cases:
         ms = timer(kern, reps)
         plain_ms = timer(plain, 2, warmup=1)
         b_ms, by = bound_ms(n_bytes, n_ops)
         out[name] = (ms, plain_ms, b_ms, by)
+        two = both.get(name.split()[0])
+        forms = "" if two is None else (
+            f"; the slope form's {two[0]} ops, {bound_ms(n_bytes, two[0])[0]!r} ms; "
+            f"the ramp sum's {two[1]} ops, {bound_ms(n_bytes, two[1])[0]!r} ms")
         log(f"[time] device-memory layout {name} {p}x{q} {shape} ms={ms!r} "
             f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({by}; {n_bytes} B, "
-            f"{n_ops} ops) | {card}")
+            f"{n_ops} ops{forms}) | {card}")
     return out
 
 
@@ -1096,7 +1167,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"capability {torch.cuda.get_device_capability(0)}")
@@ -1153,20 +1224,24 @@ def main() -> int:
     err["fused_step"] = max(err["fused_step"],
                             check_fused_fit(fused_column, build, dev))
 
-    # 3 — RNL fire against its plain version
+    # 3 — RNL fire against its plain version (on the card, on the same
+    # tensors): int32 times (the slope histogram), f32 x + 0.5 and int32
+    # with negative times (the ramp sum), and int32 with negative times in
+    # volley 0 only (one launch, both forms)
     for b, p, q in ((905, 270, 25), (121, 637, 2), (121, 650, 130)):
         rng = np.random.default_rng(b)
-        w = torch.from_numpy(rng.integers(0, 15, (p, q)).astype(np.float32) / 2)
-        t_in = torch.from_numpy(rng.integers(0, 72, (b, p)).astype(np.int32))
+        w = torch.from_numpy(rng.integers(0, 15, (p, q)).astype(np.float32) / 2).to(dev)
         thr = 0.25 * p * 3.5
-        ref = rnl_response.rnl_fire_plain(t_in, w, thr, 64, 7)
-        got = rnl_response.rnl_fire(t_in.to(dev), w.to(dev), thr, 64, 7)
-        torch.cuda.synchronize()
-        diff = float((got.cpu() - ref).abs().max())
-        err["rnl_fire"] = max(err["rnl_fire"], diff)
-        log(f"[rnl_fire] B={b} {p}x{q} max|dt|={diff} "
-            f"{layout_name(build.RNL_FIRE, p, q)}")
-        assert torch.equal(got.cpu(), ref), "rnl_fire: firing times differ"
+        for times in ("int", "half", "neg", "mixed"):
+            t_in = torch.from_numpy(fit_volleys(rng, times, (b, p), 64)).to(dev)
+            ref = rnl_response.rnl_fire_plain(t_in, w, thr, 64, 7)
+            got = rnl_response.rnl_fire(t_in, w, thr, 64, 7)
+            torch.cuda.synchronize()
+            diff = float((got - ref).abs().max())
+            err["rnl_fire"] = max(err["rnl_fire"], diff)
+            log(f"[rnl_fire] B={b} {p}x{q} {times} times={t_in.dtype} max|dt|={diff} "
+                f"{layout_name(build.RNL_FIRE, p, q, 64)}")
+            assert torch.equal(got, ref), "rnl_fire: firing times differ"
 
     # 4, 5 — the padded kernels against their plain versions
     err["fused_block"] = max(check_fused_block(fused_column, dev),
@@ -1196,6 +1271,9 @@ def main() -> int:
     for k in build.KERNELS:
         k.launches = 0
     results = {}
+    # the RNL-fire inputs of the path ('pallas' only: 'auto' fires none)
+    rnl_calls: list = []
+    unwrap = record_calls(rnl_response, "rnl_fire", rnl_calls)
     for mode in ("auto", "pallas"):
         for name, (cfg, ds, w0) in designs.items():
             before = {k.name: k.launches for k in build.KERNELS}
@@ -1220,9 +1298,22 @@ def main() -> int:
             else:
                 assert grew["rnl_fire"] == 0, grew
     launches = {k.name: k.launches for k in build.KERNELS}
+    unwrap()
     log(f"[main] launches over the single-column path: {launches}")
     for k in (build.FUSED_STEP, build.RNL_FIRE):
         assert launches[k.name] > 0, f"{k.name} never launched on its path"
+    # 3, second half — the RNL fire on the 'pallas' path's own inputs: the
+    # path's int32 times reach the kernel as they are
+    assert len(rnl_calls) == launches["rnl_fire"], (len(rnl_calls), launches)
+    for (t_in, w, *args), _ in rnl_calls:
+        assert t_in.dtype == torch.int32, ("rnl_fire reached with", t_in.dtype)
+        got = rnl_response.rnl_fire(t_in, w, *args)
+        ref = rnl_response.rnl_fire_plain(t_in, w, *args)
+        diff = float((got - ref).abs().max())
+        err["rnl_fire"] = max(err["rnl_fire"], diff)
+        log(f"[rnl_fire] path call B={t_in.shape[0]} {w.shape[0]}x{w.shape[1]} "
+            f"times={t_in.dtype} max|dt|={diff}")
+        assert torch.equal(got, ref), "rnl_fire: firing times differ on the path"
 
     for name in CPU_CHECKED:
         cfg, ds, w0 = designs[name]
@@ -1547,20 +1638,21 @@ def main() -> int:
         w3 = w[None].contiguous()
         xt = x[:1].contiguous()
         xf = xt.to(torch.float32)
+        xf_all = x.to(torch.float32)
         f_ms = timer(lambda: fused_column.fused_step_padded(w3, xt, ops, **step), 400)
         f32_ms = timer(lambda: fused_column.fused_step_padded(w3, xf, ops, **step), 400)
         f_plain = timer(lambda: fused_column.fused_step_padded_plain(w3, xt, ops, **step), 100)
         f_bytes, f_ops, f_ramp = fit_bound(fused_column, w3, xt[:, None], ops,
                                            dict(step, epochs=1), last=True)
-        # RNL fire: the main path's assignment call, every volley
-        r_ms = timer(lambda: rnl_response.rnl_fire(x, w, cfg.neuron.threshold,
-                                                   t_max, cfg.neuron.w_max), 50)
-        r_plain = timer(lambda: rnl_response.rnl_fire_plain(
-            x, w, cfg.neuron.threshold, t_max, cfg.neuron.w_max), 5, warmup=1)
-        tf = rnl_response.rnl_fire_plain(x, w, cfg.neuron.threshold, t_max,
-                                         cfg.neuron.w_max)
-        r_bytes = 4 * (n * p + p * q + n * q)
-        r_ops = fire_ops(p, tf, t_max)
+        # RNL fire: the main path's assignment call, every volley, on the
+        # path's int32 times (the slope form) and on the same times as f32
+        # (the ramp sum)
+        r_args = (cfg.neuron.threshold, t_max, cfg.neuron.w_max)
+        r_ms = timer(lambda: rnl_response.rnl_fire(x, w, *r_args), 50)
+        r32_ms = timer(lambda: rnl_response.rnl_fire(xf_all, w, *r_args), 50)
+        r_plain = timer(lambda: rnl_response.rnl_fire_plain(x, w, *r_args), 5,
+                        warmup=1)
+        r_bytes, r_ops, r_ramp = rnl_bound(rnl_response, x, w, *r_args)
         rows[name] = dict(
             one=(f_ms, f_plain, *bound_ms(f_bytes, f_ops), f_bytes, f_ops),
             rnl=(r_ms, r_plain, *bound_ms(r_bytes, r_ops), r_bytes, r_ops, n),
@@ -1570,9 +1662,11 @@ def main() -> int:
             f"one volley, int32 times: ms={f_ms!r}, f32 times: ms={f32_ms!r}, "
             f"plain_ms={f_plain!r} bound_ms={rows[name]['one'][2]!r} "
             f"({rows[name]['one'][3]}; {f_bytes} B, {f_ops} ops of the slope form, "
-            f"{f_ramp} of the ramp sum) | rnl_fire B={n} ms={r_ms!r} "
-            f"plain_ms={r_plain!r} bound_ms={rows[name]['rnl'][2]!r} "
-            f"({rows[name]['rnl'][3]}) | {card}")
+            f"{f_ramp} of the ramp sum) | rnl_fire B={n} int32 times ms={r_ms!r}, "
+            f"f32 times ms={r32_ms!r}, plain_ms={r_plain!r} "
+            f"bound_ms={rows[name]['rnl'][2]!r} ({rows[name]['rnl'][3]}; {r_bytes} B, "
+            f"{r_ops} ops of the slope form; the ramp sum's {r_ramp} ops, "
+            f"{bound_ms(r_bytes, r_ramp)[0]!r} ms) | {card}")
         if name != "WordSynonyms":
             continue
         # the plain fold over the same whole fit, one timed call (host-bound:
@@ -1613,30 +1707,38 @@ def main() -> int:
         f"ops, {bound_ms(b_bytes, b_ramp)[0]!r} ms) | {card}")
     # the batched fire on each launch of the integer-grid sweep, on that
     # launch's own inputs; the kernels line sums the sweep's launches
-    fire_sum = [0.0, 0.0, 0.0, 0.0, 0.0]  # ms, plain, bound, bytes-ms, ops-ms
+    # (the path's int32 times: the slope form), and on the same times as
+    # f32 (the ramp sum)
+    fire_sum = [0.0] * 7  # ms, plain, bound, bytes-ms, ops-ms, f32 ms, ramp ms
     shapes = []
     for (w, xs, ops), fire_kw in fire_calls:
+        xs_f = xs.to(torch.float32)
         g_ms = timer(lambda: fused_column.fire_block_padded(w, xs, ops, **fire_kw), 20)
+        g32_ms = timer(lambda: fused_column.fire_block_padded(w, xs_f, ops, **fire_kw),
+                       20)
         g_plain = timer(lambda: fused_column.fire_block_padded_plain(
             w, xs, ops, **fire_kw), 2, warmup=1)
-        g_bytes, g_ops = fire_bound(fused_column, w, xs, ops, fire_kw)
+        g_bytes, g_ops, g_ramp = fire_bound(fused_column, w, xs, ops, fire_kw)
         g_bound, g_by = bound_ms(g_bytes, g_ops)
+        ramp_bound = bound_ms(g_bytes, g_ramp)[0]
         d, n, p = xs.shape
         shapes.append(f"D={d} {p}x{w.shape[2]}")
         for i, v in enumerate((g_ms, g_plain, g_bound,
                                g_bytes / HBM_BYTES_PER_S * 1e3,
-                               g_ops / F32_OPS_PER_S * 1e3)):
+                               g_ops / F32_OPS_PER_S * 1e3, g32_ms, ramp_bound)):
             fire_sum[i] += v
         log(f"[time] grid sweep launch D={d} {p}x{w.shape[2]} fire_block N={n} "
-            f"ms={g_ms!r} plain_ms={g_plain!r} bound_ms={g_bound!r} ({g_by}; "
-            f"{g_bytes} B, {g_ops} ops) | {card}")
+            f"int32 times ms={g_ms!r}, f32 times ms={g32_ms!r}, plain_ms={g_plain!r} "
+            f"bound_ms={g_bound!r} ({g_by}; {g_bytes} B, {g_ops} ops of the slope "
+            f"form; the ramp sum's {g_ramp} ops, {ramp_bound!r} ms) | {card}")
     rows["sweep"]["fire"] = (
         fire_sum[0], fire_sum[1], fire_sum[2],
         "bytes" if fire_sum[3] >= fire_sum[4] else "operations")
     log(f"[time] grid sweep fire_block, {len(fire_calls)} launches "
-        f"({' + '.join(shapes)}, N={n_ws}) ms={fire_sum[0]!r} "
-        f"plain_ms={fire_sum[1]!r} bound_ms={fire_sum[2]!r} "
-        f"({rows['sweep']['fire'][3]}) | {card}")
+        f"({' + '.join(shapes)}, N={n_ws}) int32 times ms={fire_sum[0]!r}, f32 "
+        f"times ms={fire_sum[5]!r}, plain_ms={fire_sum[1]!r} bound_ms={fire_sum[2]!r} "
+        f"({rows['sweep']['fire'][3]}, the slope form; the ramp sum's "
+        f"{fire_sum[6]!r} ms) | {card}")
 
     # the STDP update: the ops path's first volley (270 x 25), then the
     # phase 6 shapes on their own inputs
@@ -1709,7 +1811,7 @@ def main() -> int:
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

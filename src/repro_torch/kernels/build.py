@@ -78,7 +78,7 @@ class CudaKernel:
     # dimensions that size the block's shared memory, then the layout
     # (1: the design's weights resident in shared memory, 0: in device
     # memory); None for a kernel without that entry point
-    smem_argtypes: Optional[tuple] = (ctypes.c_int, ctypes.c_int, ctypes.c_int)
+    smem_argtypes: Optional[tuple] = None
     flags: tuple = EXACT_FLAGS
     headers: tuple = TNN_HEADERS
     launches: int = 0
@@ -214,8 +214,9 @@ RNL_FIRE = CudaKernel(
     name="rnl_fire",
     source="rnl_fire.cu",
     symbol="tnn_rnl_fire",
-    argtypes=(_P, _P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _P),
+    argtypes=(_P, _P, _P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P),
     replaces="src/repro/kernels/rnl_response.py:49 _rnl_kernel",
+    smem_argtypes=(_I, _I, _I, _I),  # p, q, t_max, resident
 )
 
 FUSED_BLOCK = CudaKernel(
@@ -232,8 +233,9 @@ FIRE_BLOCK = CudaKernel(
     name="fire_block",
     source="fire_block.cu",
     symbol="tnn_fire_block",
-    argtypes=(_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+    argtypes=(_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     replaces="src/repro/kernels/fused_column.py:1019 _fire_block_kernel",
+    smem_argtypes=(_I, _I, _I, _I),  # p, q, t_window, resident
 )
 
 STDP_UPDATE = CudaKernel(
@@ -242,7 +244,6 @@ STDP_UPDATE = CudaKernel(
     symbol="tnn_stdp_update",
     argtypes=(_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _F, _I, _I, _P),
     replaces="src/repro/kernels/stdp_update.py:28 _stdp_kernel",
-    smem_argtypes=None,  # no shared memory
 )
 
 # no bit parity to keep (a tolerance, see kernels/flash_attention.py), so
@@ -253,7 +254,6 @@ FLASH_ATTENTION = CudaKernel(
     symbol="flash_attention",
     argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     replaces="src/repro/kernels/flash_attention.py:29 _flash_kernel",
-    smem_argtypes=None,
     flags=(),
     headers=(),
 )

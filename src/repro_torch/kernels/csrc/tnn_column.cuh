@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace tnn {
 
 constexpr int kWarp = 32;
@@ -155,6 +157,61 @@ __device__ __forceinline__ int warp_scan_fire_time(int* row, float threshold,
     if (hit) fire = s0 + __ffs(static_cast<int>(hit));  // = s + 1 of the first
   }
   return fire;
+}
+
+// The slope-histogram fire of one (volley, neuron) pair by one whole
+// warp, in a difference row of its own (at least t_end ints, zero on
+// entry and left zeroed): the lanes scatter neuron j's p synapses
+// (grid weights wi[i * q + j], times ti[i]), then warp_scan_fire_time.
+// Exact for integer times >= 0 only (the form's domain); no block-wide
+// barrier, so each warp of a block walks its own pairs.
+template <typename T>
+__device__ __forceinline__ int warp_slope_fire_time(
+    int* row, const float* wi, int q, int j, const T* ti, int p,
+    float threshold, int t_end) {
+  for (int i = threadIdx.x % kWarp; i < p; i += kWarp)
+    scatter_ramp(row, static_cast<float>(ti[i]), wi[i * q + j], t_end);
+  __syncwarp();
+  const int t = warp_scan_fire_time(row, threshold, t_end);
+  __syncwarp();  // the row's zeros before the next pair's scatter
+  return t;
+}
+
+// Stages `count` times from device memory into shared memory, every
+// thread of the block a share, and returns to every thread whether the
+// slope-histogram form is exact for all of them: int32 times, none
+// negative.  A block-wide barrier (one __syncthreads_or for int32 times).
+template <typename T>
+__device__ __forceinline__ bool stage_times(T* dst, const T* src, int count) {
+  if constexpr (std::is_same_v<T, int>) {
+    bool neg = false;
+    for (int k = threadIdx.x; k < count; k += blockDim.x) {
+      const int x = src[k];
+      dst[k] = x;
+      neg |= x < 0;
+    }
+    return __syncthreads_or(neg) == 0;
+  } else {
+    for (int k = threadIdx.x; k < count; k += blockDim.x) dst[k] = src[k];
+    __syncthreads();
+    return false;
+  }
+}
+
+// The number of thread blocks of `kernel` that the card holds at once at
+// this block size and dynamic shared memory (at least 1), into *blocks.
+template <typename K>
+inline cudaError_t resident_blocks(K kernel, int threads, size_t smem,
+                                   int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  *blocks = sms * per_sm > 1 ? sms * per_sm : 1;
+  return err;
 }
 
 // k-WTA on q firing times, run by one warp (lanes stride over neurons).

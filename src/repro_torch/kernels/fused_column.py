@@ -794,7 +794,8 @@ def fire_block_padded_plain(
     t_window: int,
     w_max: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the CUDA batched fire (same arguments)."""
+    """Plain PyTorch version of the CUDA batched fire (same arguments;
+    int32 and float32 volleys of the same times give the same result)."""
     ops = operands[:, :, None]
     wi = torch.round(torch.clamp(w, 0.0, float(w_max)))
     return _fire_designs(wi, xs, ops[:, 0:1], ops[:, 1:2], ops[:, 2:3],
@@ -814,19 +815,23 @@ def fire_block_padded(
 
     Args:
       w: [D, p, q] f32 weights (rounded to the grid inside).
-      xs: [D, N, p] f32 volleys; a time >= the design's t_max is silent.
+      xs: [D, N, p] int32 or f32 volleys; a time >= the design's t_max is
+        silent.  The kernel reads int32 times as they are and fires a tile
+        of them by its slope histogram where none is negative (else, and
+        for f32 times, by the ramp sum; the result is the same).
       operands: [D, N_OPERANDS] f32 (threshold, t_max, q_active used).
 
     Returns t_fire [D, N, q] f32, clamped to t_max, neurons at or past
     q_active at t_max.  CPU tensors take ``fire_block_padded_plain``;
     CUDA tensors launch the kernel (or raise), in its device-memory layout
-    where the grid does not fit in shared memory beside a tile of volleys.
+    where the grid does not fit in shared memory beside a tile of volleys
+    and the warps' rows.
     """
     tensors = (w, xs, operands)
     if all(t.device.type == "cpu" for t in tensors):
         return fire_block_padded_plain(w, xs, operands, t_window=t_window,
                                        w_max=w_max)
-    _check_cuda_operands("fire_block_padded", tensors)
+    _check_cuda_operands("fire_block_padded", (w, operands), times=(xs,))
     if w.dim() != 3 or xs.dim() != 3:
         raise ValueError(
             f"fire_block_padded needs w [D, p, q] and xs [D, N, p], got "
@@ -843,7 +848,7 @@ def fire_block_padded(
             f"{tuple(operands.shape)}"
         )
     k = build.FIRE_BLOCK
-    resident = k.resident(f"a {p} x {q} envelope", p, q)
+    resident = k.resident(f"a {p} x {q} envelope", p, q, int(t_window))
     t_fire = torch.empty((d, n, q), dtype=torch.float32, device=w.device)
     if d == 0 or n == 0:
         return t_fire
@@ -853,8 +858,8 @@ def fire_block_padded(
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
         rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(), build.ptr(grid),
-                int(resident), t_fire.data_ptr(), d, n, p, q, int(t_window),
-                int(w_max), stream)
+                int(resident), int(xs.dtype == TIME_DTYPE), t_fire.data_ptr(),
+                d, n, p, q, int(t_window), int(w_max), stream)
     build.check_launch(k, rc)
     return t_fire
 
@@ -914,7 +919,6 @@ def assign_padded(
     dev = w.device
     tm = torch.as_tensor(_floats(t_maxes), dtype=torch.float32, device=dev)
     qa = torch.as_tensor(_floats(q_actives), dtype=torch.float32, device=dev)
-    xs_d = xs.to(device=dev, dtype=torch.float32).transpose(0, 1).contiguous()
     w = w.to(torch.float32).contiguous()
     if lowering == "cuda":
         if w_max is None:
@@ -925,9 +929,13 @@ def assign_padded(
             _floats(thresholds), _floats(t_maxes), _floats(q_actives),
             0.0, 0.0, 0.0, device=dev,
         )
+        # int32 volleys as they are (the kernel's slope form), others as f32
+        dt = TIME_DTYPE if xs.dtype == TIME_DTYPE else torch.float32
+        xs_d = xs.to(device=dev, dtype=dt).transpose(0, 1).contiguous()
         t_fire = fire_block_padded(w, xs_d, operands, t_window=t_window,
                                    w_max=w_max)
     else:
+        xs_d = xs.to(device=dev, dtype=torch.float32).transpose(0, 1).contiguous()
         thr = torch.as_tensor(_floats(thresholds), dtype=torch.float32,
                               device=dev)
         t_fire = _fire_designs(w, xs_d, thr[:, None, None], tm[:, None, None],

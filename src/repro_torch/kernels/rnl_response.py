@@ -3,8 +3,9 @@ plain PyTorch version.
 
 Port of the JAX package's ``kernels/rnl_response.py`` (``_rnl_kernel``
 behind ``rnl_fire_pallas``).  The TPU kernel decomposed integer weights
-into one-hot value planes for its matrix unit; the CUDA kernel sums the
-ramps directly (see the source's note).  Both compute
+into one-hot value planes for its matrix unit; the CUDA kernel fires
+int32 times >= 0 by a slope histogram and other times by the direct ramp
+sum (see the source's note).  All compute
 
   t_fire[b, j] = first t < t_max with
                  sum_i min(relu(t - t_in[b, i]), rint(clamp(w_ij, 0, w_max)))
@@ -29,7 +30,7 @@ def rnl_fire_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: dense time evaluation on the rounded grid,
     in volley chunks that bound the [b, p, q, T] transient.
-    [B, p], [p, q] -> [B, q] int32."""
+    [B, p] int32 or float32, [p, q] -> [B, q] int32."""
     wi = torch.round(torch.clamp(w.to(torch.float32), 0.0, float(w_max)))
     p, q = wi.shape
     step = max(1, _PLAIN_CHUNK_ELEMS // max(1, p * q * t_max))
@@ -48,9 +49,12 @@ def rnl_fire(
     """Firing times of integer-grid RNL neurons.  [B, p], [p, q] -> [B, q].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise).  ``t_in`` is int32 or float32, ``w`` float32.  A column
-    whose grid does not fit in shared memory beside a tile of volleys runs
-    in the kernel's device-memory layout.
+    (or raise).  ``t_in`` is int32 or float32, ``w`` float32; the kernel
+    reads int32 times as they are, and fires them by its slope histogram
+    where none is negative (else, and for float32 times, by the ramp sum;
+    the result is the same).  A column whose grid does not fit in shared
+    memory beside a tile of volleys and the warps' rows runs in the
+    kernel's device-memory layout.
     """
     if t_in.device.type == "cpu" and w.device.type == "cpu":
         return rnl_fire_plain(t_in, w, threshold, t_max, w_max)
@@ -73,9 +77,9 @@ def rnl_fire(
         raise ValueError("rnl_fire needs a contiguous w")
     b, p = t_in.shape
     q = w.shape[1]
-    ti = t_in.to(torch.float32).contiguous()
+    ti = t_in.contiguous()  # int32 as it is: the kernel's slope form
     k = build.RNL_FIRE
-    resident = k.resident(f"a {p} x {q} column", p, q)
+    resident = k.resident(f"a {p} x {q} column", p, q, int(t_max))
     out = torch.empty((b, q), dtype=TIME_DTYPE, device=w.device)
     if b == 0 or q == 0:
         return out
@@ -85,7 +89,7 @@ def rnl_fire(
         stream = torch.cuda.current_stream(w.device).cuda_stream
         k.launches += 1
         rc = fn(ti.data_ptr(), w.data_ptr(), build.ptr(grid), int(resident),
-                out.data_ptr(), b, p, q, float(threshold), int(t_max),
-                int(w_max), stream)
+                int(ti.dtype == TIME_DTYPE), out.data_ptr(), b, p, q,
+                float(threshold), int(t_max), int(w_max), stream)
     build.check_launch(k, rc)
     return out

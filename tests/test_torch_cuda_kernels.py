@@ -326,7 +326,8 @@ def test_block_wrappers_refuse_bad_operands(cuda_device):
     with pytest.raises(ValueError):
         fused_column.fire_block_padded(w, t.transpose(1, 2), ops, **fkw)
     with pytest.raises(ValueError):
-        fused_column.fire_block_padded(w, t.to(torch.int32), ops, **fkw)
+        fused_column.fire_block_padded(w, t.to(torch.int64), ops, **fkw)
+    fused_column.fire_block_padded(w, t.to(torch.int32), ops, **fkw)  # int32 times
     # 300 x 200 does not fit in shared memory: the device-memory layout
     wb, tb, ob = _block_case(1, 300, 200, 4, seed=300)
     ref = fused_column.fire_block_padded_plain(wb, tb, ob, t_window=64, w_max=7)
@@ -417,7 +418,7 @@ def test_fit_scan_padded_refuses_float_volleys_on_the_card(cuda_device):
 # ------------------------------------- the device-memory layout
 # (p, q): too wide for shared memory in the resident layout for some of
 # the four fire kernels: at 650 x 130 for all four, at 4000 x 8 for
-# rnl_fire and fire_block; at 637 x 50 every kernel stays resident
+# fire_block; at 637 x 50 every kernel stays resident
 LAYOUT_SHAPES = [(650, 130), (4000, 8), (637, 50)]
 
 
@@ -426,13 +427,13 @@ def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
     """All four fire kernels at widths where some of them cannot keep
     their weights in shared memory: bit-equal to their plain versions, in
     the launches their layouts take."""
-    resident = {k.name: k.resident("", p, q) for k in (
-        build.RNL_FIRE, build.FIRE_BLOCK)}
-    resident["fused_step"] = build.FUSED_STEP.resident("", p, q, 64)
+    resident = {k.name: k.resident("", p, q, 64) for k in (
+        build.FUSED_STEP, build.RNL_FIRE, build.FIRE_BLOCK)}
     resident["fused_block"] = build.FUSED_BLOCK.resident("", p, q, 1, 64)
     assert resident["fused_step"] == ((p, q) != (650, 130))
     assert resident["fused_block"] == ((p, q) != (650, 130))
-    assert resident["rnl_fire"] == resident["fire_block"] == ((p, q) == (637, 50))
+    assert resident["rnl_fire"] == ((p, q) != (650, 130))
+    assert resident["fire_block"] == ((p, q) == (637, 50))
 
     w, t_in, ops_ = _fused_case(2, p, q, 64, seed=p + q, hetero=True)
     kw = dict(t_window=64, w_max=7, wta_k=2, stabilize=True)
@@ -462,6 +463,55 @@ def test_fire_kernels_in_device_memory_layout_match_plain(cuda_device, p, q):
     ref = rnl_response.rnl_fire_plain(t_b, w[0], thr, 64, 7)
     got = rnl_response.rnl_fire(t_b.to(cuda_device), w[0].to(cuda_device), thr, 64, 7)
     assert torch.equal(got.cpu(), ref)
+
+
+# ------------------------------------- the fire form, block by block
+@pytest.mark.parametrize("kind", ["int", "half", "neg", "mixed"])
+@pytest.mark.parametrize("p,q", [(270, 50), (650, 130)], ids=["resident", "device_memory"])
+def test_fire_kernels_pick_their_form_per_block(cuda_device, p, q, kind):
+    """rnl_fire and fire_block on int32 times >= 0 (the slope histogram),
+    f32 x + 0.5 times and int32 times with negative ones (the ramp sum),
+    and ``mixed`` launches where some blocks take each form, in both
+    layouts: bit-equal to the plain versions.  The designs cover t_max <
+    t_window, q_active < q, a threshold of 0 and one above p * w_max."""
+    d, n = 4, 40
+    rng = np.random.default_rng(p + q + len(kind))
+    w = torch.from_numpy(np.clip(_half_grid_weights(rng, (d, p, q)), 0, 7))
+    xs = torch.from_numpy(_volleys(rng, kind, (d, n, p), 64))
+    ops_ = fused_column.design_operands(
+        [0.25 * p * 3.5, 0.15 * p * 3.5, 0.0, 7.0 * p + 1], [64, 40, 33, 64],
+        [q, q - 3, 1, q], 0.0, 0.0, 0.0)
+    assert build.FIRE_BLOCK.resident("", p, q, 64) == (p == 270)
+    ref = fused_column.fire_block_padded_plain(w, xs, ops_, t_window=64, w_max=7)
+    before = build.FIRE_BLOCK.launches
+    got = fused_column.fire_block_padded(
+        w.to(cuda_device), xs.to(cuda_device), ops_.to(cuda_device),
+        t_window=64, w_max=7)
+    torch.cuda.synchronize()
+    assert build.FIRE_BLOCK.launches == before + 1
+    assert torch.equal(got.cpu(), ref), (got.cpu() - ref).abs().max()
+
+    t_b = xs[0] if kind != "mixed" else xs[1].clone()
+    if kind == "mixed":  # one volley's tile takes the ramp sum
+        t_b[17, 5] = -3
+    for t_max in (64, 40):
+        ref = rnl_response.rnl_fire_plain(t_b, w[0], 0.25 * p * 3.5, t_max, 7)
+        got = rnl_response.rnl_fire(t_b.to(cuda_device), w[0].to(cuda_device),
+                                    0.25 * p * 3.5, t_max, 7)
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("p,q,t", [(270, 25, 64), (270, 50, 64), (637, 50, 64),
+                                   (650, 130, 32), (4000, 8, 64)])
+def test_fire_kernels_smem_bytes_equal_the_mirror(cuda_device, p, q, t):
+    """Each source's ``_smem_bytes`` against the formula that
+    ``tests/test_torch_flash.py`` mirrors: the grid (resident only), the
+    tile of volleys and one difference row of t + 1 ints per warp."""
+    for r in (True, False):
+        assert build.RNL_FIRE.smem_bytes(p, q, t, resident=r) == (
+            (p * q * r + 2 * p) * 4 + 8 * (t + 1) * 4)
+        assert build.FIRE_BLOCK.smem_bytes(p, q, t, resident=r) == (
+            (p * q * r + 8 * p) * 4 + 16 * (t + 1) * 4)
 
 
 STDP_SHAPES = [(13, 3), (270, 25), (650, 130), (7, 1), (540, 50)]

@@ -165,14 +165,17 @@ def _fused_block_smem(p, q, v_blk, t_window, resident=True):
     return (p * q * resident + v_blk * p + q) * 4 + (q + q * (t_window + 1)) * 4
 
 
-def _rnl_fire_smem(p, q, resident=True):
-    # csrc/rnl_fire.cu: tnn_rnl_fire_smem_bytes (8 volleys per block)
-    return (p * q * resident + 8 * p) * 4
+def _rnl_fire_smem(p, q, t_max, resident=True):
+    # csrc/rnl_fire.cu: tnn_rnl_fire_smem_bytes (a tile of 2 volleys; one
+    # difference row of t_max + 1 ints for each of the block's 8 warps)
+    return (p * q * resident + 2 * p) * 4 + 8 * (t_max + 1) * 4
 
 
-def _fire_block_smem(p, q, resident=True):
-    # csrc/fire_block.cu: tnn_fire_block_smem_bytes (8 volleys per block)
-    return (p * q * resident + 8 * p) * 4
+def _fire_block_smem(p, q, t_window, resident=True):
+    # csrc/fire_block.cu: tnn_fire_block_smem_bytes (a tile of 8 volleys;
+    # one difference row of t_window + 1 ints for each of the block's 16
+    # warps)
+    return (p * q * resident + 8 * p) * 4 + 16 * (t_window + 1) * 4
 
 
 @pytest.fixture
@@ -188,8 +191,8 @@ def _layouts(p, q) -> dict:
     return {
         "fused_step": build.FUSED_STEP.resident("", p, q, 64),
         "fused_block": build.FUSED_BLOCK.resident("", p, q, 1, 64),
-        "rnl_fire": build.RNL_FIRE.resident("", p, q),
-        "fire_block": build.FIRE_BLOCK.resident("", p, q),
+        "rnl_fire": build.RNL_FIRE.resident("", p, q, 64),
+        "fire_block": build.FIRE_BLOCK.resident("", p, q, 64),
     }
 
 
@@ -199,10 +202,12 @@ def _layouts(p, q) -> dict:
     # Lightning2 at q = 50: a fit needs 145,896 B for the weights, two
     # volleys and the histogram in fused_step, 143,348 B beside the
     # weights and the histogram in fused_block, while the fire kernels'
-    # grid and tile need 147,784 B
+    # grid, tile and warp rows need 134,576 B (rnl_fire) and 151,944 B
+    # (fire_block)
     (637, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
     (650, 130, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
-    (4000, 8, dict(fused_step=True, fused_block=True, rnl_fire=False, fire_block=False)),
+    # rnl_fire's tile of 2 volleys leaves room for a 4000 x 8 grid
+    (4000, 8, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=False)),
     (4000, 16, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
     (6000, 10, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
 ])
@@ -210,7 +215,8 @@ def test_kernels_take_the_resident_layout_wherever_it_fits(smem_formulas, p, q, 
     assert _layouts(p, q) == want
     assert _fused_step_smem(637, 50, 64) == 145_896
     assert _fused_block_smem(637, 50, 1, 64) == 143_348
-    assert _rnl_fire_smem(637, 50) == _fire_block_smem(637, 50) == 147_784
+    assert _rnl_fire_smem(637, 50, 64) == 134_576
+    assert _fire_block_smem(637, 50, 64) == 151_944
 
 
 def test_device_layout_blocks_split_by_the_same_formula(smem_formulas):
