@@ -94,8 +94,8 @@ JAX or the JAX package.  Phases, each of which asserts:
     against Skv 1000, Sq 63, 65, 129, 1000, Skv != Sq);
 15. the LM slice at full width, 2 layers: granite-3-8b in f32, B 1, a
     100-token prompt and 4 decode steps, card logits (the kernel) against
-    CPU logits (the plain version) from the same weights, < 1e-4 of the
-    largest, TF32 off; the JAX package's serve-matches-forward property
+    a float64 CPU reference (the plain version) from the same weights,
+    < 1e-4 of the largest, TF32 off; the JAX package's serve-matches-forward property
     (prefill of 6 tokens + 6 decode steps against the forward) on the
     card, in f32 < 3e-3, and in bf16 within two bf16 steps of the
     largest logit for three weight seeds (the JAX package's own bf16
@@ -125,6 +125,24 @@ JAX or the JAX package.  Phases, each of which asserts:
     shape beside its plain version and PyTorch's
     ``scaled_dot_product_attention`` (bound by the operations of its
     split-P products, the two products' alone printed beside it).
+
+18. the TNN serving path, launch counters read around it: the streaming
+    ``serve.ClusteringService`` over the seven Table II designs at
+    published widths (four envelope buckets), integer-grid STDP from
+    integer weights, every series of their synthetic doubles (3,426
+    requests) round-robin, batch 16, a re-fit every 64 requests of a
+    bucket over windows of 32: all served, nothing failed, shed, isolated
+    or degraded; each batch one fire_block launch and each re-fit the
+    fused_block launches of ``block_sub_launches``, nothing else launched
+    or built; requests/s, latency p50/p99, ms per batch and re-fit; the
+    same service on the CPU (equal ids, bit-equal weights); a frozen copy
+    against ``simulator.assign_time_series``; a durable run dropped
+    without a drain after half the stream, recovered on the card and on
+    the CPU (bit-identical weights) and fed the rest; the two kernels
+    against their plain versions on recorded serving calls and timed at
+    each bucket's serving shape; a default-STDP fleet, card against CPU;
+    ``python -m repro_torch.launch.serve_tnn --smoke`` (its own SIGTERM,
+    a drain, exit 0).
 
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -859,10 +877,13 @@ def serve_vs_forward(T, model, toks) -> tuple[float, float]:
 
 
 def lm_slice_checks(T, cfg_full, dev) -> None:
-    """Phase 15: the LM at full width, 2 layers: card logits against CPU
-    logits in f32 (the kernel against its plain version inside the model);
-    the serve-matches-forward property on the card in f32 at its
-    tolerance, and in bf16 within two bf16 steps of the largest logit."""
+    """Phase 15: the LM at full width, 2 layers: card logits (f32, the
+    kernel) against a float64 reference of the same weights on the CPU
+    (the plain version); the serve-matches-forward property on the card
+    in f32 at its tolerance, and in bf16 within two bf16 steps of the
+    largest logit.  The reference is float64 because the f32 CPU logits
+    moved by up to ~1e-4 of the largest between processes on some chip
+    hosts (PERF.md section 7)."""
     import dataclasses
     import math
 
@@ -871,25 +892,24 @@ def lm_slice_checks(T, cfg_full, dev) -> None:
     cfg = dataclasses.replace(cfg_full, n_layers=2, dtype="float32")
     card_m = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5),
                            device=dev)
-    cpu_m = T.params_from_jax(T.params_to_numpy(card_m), cfg, "cpu")
+    ref_m = T.params_from_jax(T.params_to_numpy(card_m), cfg, "cpu").double()
     toks = torch.randint(0, cfg.vocab_size, (1, 104),
                          generator=torch.Generator().manual_seed(6))
-    errs = []
+    runs = ((card_m, dev), (ref_m, "cpu"))
     t0 = time.perf_counter()
     with torch.inference_mode():
-        c_cpu, l_cpu = T.prefill(cpu_m, toks[:, :100], max_len=110)
-        c_card, l_card = T.prefill(card_m, toks[:, :100].to(dev), max_len=110)
-        errs.append(rel_err(l_card, l_cpu))
+        steps = [[T.prefill(m, toks[:, :100].to(d), max_len=110) for m, d in runs]]
         for t in range(100, 104):
-            c_cpu, l_cpu = T.decode_step(cpu_m, c_cpu, toks[:, t : t + 1])
-            c_card, l_card = T.decode_step(card_m, c_card, toks[:, t : t + 1].to(dev))
-            errs.append(rel_err(l_card, l_cpu))
-    log(f"[lm] {cfg.name} full width, 2 layers, f32: card vs CPU logits relative "
-        f"to the largest, prefill(100) then 4 decode steps: {errs} (< 1e-4; "
-        f"{time.perf_counter() - t0:.1f}s)")
+            steps.append([T.decode_step(m, c, toks[:, t : t + 1].to(d))
+                          for (c, _), (m, d) in zip(steps[-1], runs)])
+    logits = [[lg for _, lg in step] for step in steps]
+    errs = [rel_err(card, ref) for card, ref in logits]
+    log(f"[lm] {cfg.name} full width, 2 layers, f32: card logits vs the float64 "
+        f"CPU reference, relative to the largest, prefill(100) then 4 decode "
+        f"steps: {errs} (< 1e-4; {time.perf_counter() - t0:.1f}s)")
     assert max(errs) < 1e-4, errs
-    assert bool(torch.isfinite(l_card).all())
-    del cpu_m, c_cpu, c_card
+    assert all(bool(torch.isfinite(card).all()) for card, _ in logits)
+    del ref_m, steps, logits
 
     # the JAX package's test_serve_matches_forward: B 2, 12 tokens, in its
     # own dtype (f32) and tolerance
@@ -919,6 +939,312 @@ def lm_slice_checks(T, cfg_full, dev) -> None:
             f"vs forward logits relative to the largest {err} = {err / step} bf16 "
             f"steps of the largest logit {mx} (<= 2 steps: {2 * step})")
         assert err <= 2 * step, (seed, err, step)
+
+
+# ------------------------------------------------------ TNN serving
+SERVE_SEED = 11  # initial weights: SERVE_SEED (default STDP), + 1 (grid)
+SERVE_BATCH = 16
+SERVE_PROFILED = 800  # requests served under torch.profiler
+
+
+def serving_fleet(grid: bool) -> tuple[dict, dict]:
+    """The seven Table II designs at published widths (t_max 64,
+    ``suggest_threshold``) and their initial weights from a seed: integer
+    0-7 with integer-grid STDP (mus 1/1/1, no stabilizer), as phase 8's
+    grid sweep; uniform floats with the default STDP."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.tnn_columns import all_benchmarks, column_config
+    from repro_torch.core import simulator
+    from repro_torch.core.types import STDPConfig
+
+    rng = np.random.default_rng(SERVE_SEED + int(grid))
+    fleet, weights = {}, {}
+    for name in all_benchmarks():
+        c = column_config(name)
+        if grid:
+            c = dataclasses.replace(c, stdp=STDPConfig(
+                mu_capture=1.0, mu_backoff=1.0, mu_search=1.0, stabilizer="none"))
+        fleet[name] = c.with_threshold(simulator.suggest_threshold(c))
+        w = (rng.integers(0, c.neuron.w_max + 1, (c.p, c.q)) if grid
+             else rng.uniform(0, c.neuron.w_max, (c.p, c.q)))
+        weights[name] = w.astype(np.float32)
+    return fleet, weights
+
+
+def serving_stream(fleet, ucr) -> list:
+    """Every series of each design's full synthetic double, round-robin
+    across the designs: [(design, series)]."""
+    xs = {name: ucr.load(name).x for name in fleet}
+    out = []
+    for k in range(max(len(x) for x in xs.values())):
+        out += [(name, x[k]) for name, x in xs.items() if k < len(x)]
+    return out
+
+
+def serve_all(svc, stream) -> list:
+    handles = [svc.submit(x, d) for d, x in stream]
+    svc.flush()
+    return handles
+
+
+def assert_clean(svc, n: int) -> None:
+    """Every request served: no failure, shed, isolation, failed re-fit
+    or degraded bucket (a CUDA fault is sticky, so none may pass)."""
+    st = svc.stats()
+    assert (st.served, st.failed, st.shed, st.isolations, st.refit_failures,
+            st.degraded, st.pending) == (n, 0, 0, 0, 0, 0, 0), st
+
+
+def timed(fn, sink: list):
+    """``fn`` with the host clock of each call appended to ``sink``."""
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        sink.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def same_service(a, b, ha, hb, label: str) -> None:
+    """Two services that took the same stream: equal ids request by
+    request and bit-equal weights design by design."""
+    import numpy as np
+
+    ids_a = [h.result().cluster for h in ha]
+    ids_b = [h.result().cluster for h in hb]
+    same_w = all(np.array_equal(a.weights(d), b.weights(d)) for d in a.designs())
+    log(f"[serve_tnn] {label}: ids equal={ids_a == ids_b} weights bit-equal={same_w}")
+    assert ids_a == ids_b, label
+    assert same_w, label
+
+
+def tnn_serving(build, fused_column, simulator, ucr, dev, card, timer) -> dict:
+    """Phase 18: the streaming clustering service at full width (the seven
+    Table II designs in four envelope buckets, every series of their
+    synthetic doubles), launch counters reset just before it and read
+    just after.  Returns the kernels' timings at the serving shapes."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.serve import ClusteringService
+
+    fleet, w0 = serving_fleet(grid=True)
+    stream = serving_stream(fleet, ucr)
+    n = len(stream)
+    kw = dict(batch_size=SERVE_BATCH, weights=w0)  # re-fit every 64, window 32
+    svc = ClusteringService(fleet, device=dev, **kw)
+    warm = svc.warmup()
+    for b in svc.buckets():
+        log(f"[serve_tnn] envelope {b['envelope']} <- {b['designs']}")
+    assert all(b.asg_lowering == b.fit_lowering == "cuda" for b in svc._buckets)
+
+    # the path: counters to 0 just before, read just after; on the side the
+    # re-fits' shapes, the host clock of each batch and re-fit, any build
+    fits, t_batch, t_refit, builds = [], [], [], []
+    orig_fit, orig_build = fused_column.fit_scan_padded, build.build_all
+
+    def record_fit(w, xs, *a, **k):
+        fits.append((tuple(w.shape), xs.shape[0], k["v_blk"], k["t_window"],
+                     k["epochs"]))
+        return orig_fit(w, xs, *a, **k)
+
+    svc._assign = timed(svc._assign, t_batch)
+    svc._fit_window = timed(svc._fit_window, t_refit)
+    fused_column.fit_scan_padded = record_fit
+    build.build_all = lambda *a, **k: builds.append(a) or orig_build(*a, **k)
+    torch.cuda.synchronize()
+    for k in build.KERNELS:
+        k.launches = 0
+    try:
+        t0 = time.perf_counter()
+        handles = serve_all(svc, stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in build.KERNELS}
+    finally:
+        fused_column.fit_scan_padded, build.build_all = orig_fit, orig_build
+    st = svc.stats()
+    want_block = sum(
+        e * len(fused_column.block_sub_launches(p, q, v, min(v, r - s), tw))
+        for (_, p, q), r, v, tw, e in fits for s in range(0, r, v))
+    lat = sorted(h.result().latency_s for h in handles)
+    out = dict(rps=n / wall, p50_ms=lat[n // 2] * 1e3,
+               p99_ms=lat[min(n - 1, int(n * 0.99))] * 1e3,
+               batch_ms=statistics.median(t_batch) * 1e3,
+               refit_ms=statistics.median(t_refit) * 1e3)
+    log(f"[serve_tnn] integer-grid fleet, {n} requests in {wall!r} s: "
+        f"{out['rps']!r} requests/s, latency p50 {out['p50_ms']!r} ms p99 "
+        f"{out['p99_ms']!r} ms; median ms per batch {out['batch_ms']!r} "
+        f"({len(t_batch)} batches), per re-fit {out['refit_ms']!r} "
+        f"({len(t_refit)} re-fits), host clock; warmup {warm['seconds']!r} s | {card}")
+    log(f"[serve_tnn] launches={launches}; pinned: fire_block = batches = "
+        f"{st.batches}, fused_block = the re-fits' block_sub_launches = "
+        f"{want_block} over {st.refits} re-fits; builds after warmup {len(builds)}")
+    assert_clean(svc, n)
+    assert all(b.asg_lowering == "cuda" for b in svc._buckets)
+    assert len(fits) == st.refits and not builds
+    assert launches == {k.name: 0 for k in build.KERNELS} | {
+        "fire_block": st.batches, "fused_block": want_block}, launches
+
+    # where the time goes: the first SERVE_PROFILED requests on a fresh
+    # service from the same weights, under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_svc = ClusteringService(fleet, device=dev, **kw)
+    prof_svc.warmup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_all(prof_svc, stream[:SERVE_PROFILED])
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t0) * 1e3
+    busy, n_k = device_us(prof)
+    fire_us, n_fire = device_us(prof, "fire_block_kernel")
+    block_us, n_block = device_us(prof, "fused_block_kernel")
+    out["profile"] = (wall_p, busy / 1e3, n_k)
+    log(f"[profile] serving {SERVE_PROFILED} requests ({prof_svc.stats().batches} "
+        f"batches, {prof_svc.stats().refits} re-fits): wall {wall_p!r} ms (profiled); "
+        f"device busy {busy / 1e3!r} ms in {n_k} kernels, of which fire_block "
+        f"{fire_us / 1e3!r} ms in {n_fire}, fused_block {block_us / 1e3!r} ms in "
+        f"{n_block}; device idle share {1 - busy / 1e3 / wall_p!r} | {card}")
+    del prof, prof_svc
+
+    # the same service on the CPU, same weights and stream
+    cpu = ClusteringService(fleet, device="cpu", **kw)
+    cpu.warmup()
+    same_service(svc, cpu, handles, serve_all(cpu, stream),
+                 "integer-grid fleet, card vs CPU")
+    del cpu
+
+    # a frozen copy against simulator.assign_time_series on the card
+    frozen = ClusteringService(fleet, device=dev, refit_every=0, **kw)
+    frozen.warmup()
+    hf = serve_all(frozen, stream)
+    assert_clean(frozen, n)
+    for name, cfg in fleet.items():
+        got = [h.result().cluster for h, (d, _) in zip(hf, stream) if d == name]
+        want = simulator.assign_time_series(ucr.load(name).x, cfg, {"w": w0[name]},
+                                            device=dev)
+        assert got == want.tolist(), name
+    log("[serve_tnn] frozen copy (refit_every=0): ids equal to "
+        "simulator.assign_time_series on the card for all seven designs")
+    del frozen
+
+    # durability: a durable run dropped without drain() after half the
+    # stream (its kernel calls recorded), recovered on the card and on the
+    # CPU; the recovered service then takes the rest
+    half = n // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        dur = ClusteringService(fleet, device=dev, durable_dir=f"{tmp}/svc", **kw)
+        dur.warmup()
+        fire_calls, block_calls = [], []
+        undo = [record_calls(fused_column, "fire_block_padded", fire_calls),
+                record_calls(fused_column, "fused_block_padded", block_calls)]
+        try:
+            for d, x in stream[:half]:
+                dur.submit(x, d)
+        finally:
+            for u in undo:
+                u()
+        dst = dur.stats()
+        live = {d: dur.weights(d) for d in fleet}
+        del dur  # dropped: no drain, no final snapshot
+        rec = ClusteringService.recover(f"{tmp}/svc", device=dev)
+        rec_cpu = ClusteringService.recover(f"{tmp}/svc", device="cpu")
+        for r in (rec, rec_cpu):
+            assert r.stats().replayed == dst.wal_records
+            for d in fleet:
+                assert np.array_equal(r.weights(d), live[d]), (r.device, d)
+        log(f"[serve_tnn] durable run dropped after {half} requests "
+            f"({dst.refits} re-fits, {dst.snapshots} snapshots, WAL tail "
+            f"{dst.wal_records}): recovered on the card and on the CPU, weights "
+            f"bit-identical to the dropped service's")
+        # the rest: the recovered service against a fresh one from the same
+        # weights (a kill loses the served-but-unrefit buffers by contract)
+        rec.warmup()
+        fresh = ClusteringService(fleet, device=dev, batch_size=SERVE_BATCH,
+                                  weights=live)
+        fresh.warmup()
+        rest = stream[half:]
+        same_service(rec, fresh, serve_all(rec, rest), serve_all(fresh, rest),
+                     f"recovered service, then the other {len(rest)} requests, vs "
+                     f"a fresh service from the recovered weights")
+        assert_clean(fresh, len(rest))
+
+    # the two kernels against their plain versions on recorded serving
+    # calls (one batch and one re-fit window per bucket), and timed
+    rows = {"fire": [], "block": []}
+    seen = set()
+    for args, fkw in fire_calls:
+        w, xs, ops = args
+        if tuple(w.shape) in seen:
+            continue
+        seen.add(tuple(w.shape))
+        check_path_fire_calls(fused_column, [((w, xs, ops), fkw)])
+        g_ms = timer(lambda: fused_column.fire_block_padded(w, xs, ops, **fkw), 200)
+        g_plain = timer(lambda: fused_column.fire_block_padded_plain(
+            w, xs, ops, **fkw), 20)
+        g_bytes, g_ops, g_ramp = fire_bound(fused_column, w, xs, ops, fkw)
+        g_bound, g_by = bound_ms(g_bytes, g_ops)
+        rows["fire"].append((tuple(w.shape), g_ms, g_plain, g_bound, g_by))
+        d, nn, p = xs.shape
+        log(f"[time] serving fire_block D={d} N={nn} {p}x{w.shape[2]} ms={g_ms!r} "
+            f"plain_ms={g_plain!r} bound_ms={g_bound!r} ({g_by}; {g_bytes} B, {g_ops} "
+            f"ops of the slope form; the ramp sum's {g_ramp}) | {card}")
+    seen = set()
+    for (w, blk, ops, nv), bkw in block_calls:
+        if tuple(w.shape) in seen:
+            continue
+        seen.add(tuple(w.shape))
+        got = fused_column.fused_block_padded(w, blk, ops, nv, **bkw)
+        ref = fused_column.fused_block_padded_plain(w, blk, ops, nv, **bkw)
+        d, v, p = blk.shape
+        log(f"[fused_block] serving re-fit window D={d} v_blk={v} n_valid={nv} "
+            f"{p}x{w.shape[2]} max|dw|={float((got - ref).abs().max())}")
+        assert torch.equal(got, ref), "fused_block differs on a serving window"
+        b_ms = timer(lambda: fused_column.fused_block_padded(w, blk, ops, nv, **bkw), 50)
+        b_plain = timer(lambda: fused_column.fused_block_padded_plain(
+            w, blk, ops, nv, **bkw), 3, warmup=1)
+        b_bytes, b_ops, b_ramp = block_bound(fused_column, w, blk, ops, bkw)
+        b_bound, b_by = bound_ms(b_bytes, b_ops)
+        rows["block"].append((tuple(w.shape), b_ms, b_plain, b_bound, b_by))
+        log(f"[time] serving re-fit fused_block D={d} v_blk={v} {p}x{w.shape[2]} "
+            f"ms={b_ms!r} plain_ms={b_plain!r} bound_ms={b_bound!r} ({b_by}; "
+            f"{b_bytes} B, {b_ops} ops of the slope form; the ramp sum's {b_ramp}) "
+            f"| {card}")
+    assert len(rows["fire"]) == len(rows["block"]) == len(svc.buckets())
+
+    # the default-STDP fleet: float weights (plain-PyTorch assignment),
+    # re-fits on fused_block; card against CPU
+    fleet_f, w_f = serving_fleet(grid=False)
+    kw_f = dict(batch_size=SERVE_BATCH, weights=w_f)
+    card_f = ClusteringService(fleet_f, device=dev, **kw_f)
+    cpu_f = ClusteringService(fleet_f, device="cpu", **kw_f)
+    card_f.warmup()
+    cpu_f.warmup()
+    assert all(b.asg_lowering == "reference" for b in card_f._buckets)
+    t0 = time.perf_counter()
+    h_card = serve_all(card_f, stream)
+    wall_f = time.perf_counter() - t0
+    assert_clean(card_f, n)
+    log(f"[serve_tnn] default-STDP fleet, {n} requests in {wall_f!r} s: "
+        f"{n / wall_f!r} requests/s, {card_f.stats().refits} re-fits | {card}")
+    same_service(card_f, cpu_f, h_card, serve_all(cpu_f, stream),
+                 "default-STDP fleet, card vs CPU")
+
+    # the launcher, on the card, takes its own SIGTERM and drains
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_tnn", "--smoke"],
+                       capture_output=True, text=True, cwd=ROOT, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    for line in r.stdout.splitlines():
+        if not line.startswith("[serve_tnn] stats"):
+            log(line)
+    assert r.returncode == 0 and "drained cleanly" in r.stdout, r.stderr[-2000:]
+    out.update(rows=rows, launches=launches)
+    return out
 
 
 def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
@@ -963,21 +1289,26 @@ def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
     return out
 
 
+def device_us(prof, match=None) -> tuple[float, int]:
+    """Device time (us) and count of the kernels in a ``torch.profiler``
+    run, all of them or those whose name contains ``match``."""
+    import torch
+
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                match is None or match in e.key):
+            total += e.self_device_time_total
+            n += e.count
+    return total, n
+
+
 def profile_serving(T, model, cfg, dev, card) -> dict:
     """Where the serving time goes: one prefill and four decode steps
     under ``torch.profiler``, device time summed by kernel (the flash
     kernel apart) against the host clock of the same, profiled, run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(prof, match=None) -> tuple[float, int]:
-        total, n = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and (
-                    match is None or match in e.key):
-                total += e.self_device_time_total
-                n += e.count
-        return total, n
 
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
@@ -1772,7 +2103,13 @@ def main() -> int:
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
 
-    # 18 — the kernels line; launches from each kernel's own path
+    # 18 — TNN serving at full width, on the fire_block and fused_block kernels
+    tnn = tnn_serving(build, fused_column, simulator, ucr, dev, card, timer)
+    log(f"[serve_tnn] {tnn['rps']!r} requests/s, p50 {tnn['p50_ms']!r} ms, p99 "
+        f"{tnn['p99_ms']!r} ms, batch {tnn['batch_ms']!r} ms, re-fit "
+        f"{tnn['refit_ms']!r} ms (host clock) | {card}")
+
+    # 19 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]
     path_launches = dict(launches, fused_block=sweep_launches["fused_block"],
                          fire_block=sweep_launches["fire_block"],

@@ -153,6 +153,20 @@ def lowering_ladder(start: str, cycle_exact: bool = False) -> tuple[str, ...]:
     return (start,) + (("cycle",) if cycle_exact else ())
 
 
+# Degraded-mode backoff of the ONLINE re-fit (the serving analogue of
+# MAX_EVAL_RETRIES): after the k-th consecutive re-fit failure a bucket
+# sits out 2^(k-1) re-fit windows, capped so a long outage never pushes
+# the retry horizon out indefinitely, and keeps serving from its
+# last-good weights in the meantime.
+REFIT_BACKOFF_CAP = 8
+
+
+def refit_backoff(failures: int) -> int:
+    """Re-fit windows to sit out after the ``failures``-th consecutive
+    online re-fit failure (the streaming service's degraded mode)."""
+    return int(min(2 ** (max(int(failures), 1) - 1), REFIT_BACKOFF_CAP))
+
+
 def cycle_exact(cfg: ColumnConfig, w0) -> bool:
     """True iff the 'cycle' solver is bit-identical to the fused path for
     this design: integer STDP steps, no stabilizer, expected mode, and

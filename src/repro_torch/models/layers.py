@@ -8,6 +8,8 @@ The layers are plain functions over dicts of tensors, with thin
 in the JAX layout (``x @ w``) and call them.  Weights are stored in
 ``cfg.dtype``; the places of rounding are the JAX package's: RMSNorm,
 RoPE and SiLU compute in f32 and cast back, attention scores are f32.
+A model whose weights were cast to float64 computes all of these in
+float64 instead (``_acc``): the CPU reference of the card's f32 check.
 
 On CUDA tensors the prefill and no-cache attention run the hand-written
 kernel (``kernels/flash_attention.py``) and raise if it fails; on CPU
@@ -33,6 +35,13 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The type norms, RoPE, SiLU and attention scores compute in for
+    tensors of ``dtype``: f32 (for f32 and bf16 alike), or f64 for a
+    float64 model."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def dense_init(generator: torch.Generator, shape, dtype, scale: float = 1.0,
                *, device=None) -> torch.Tensor:
     """N(0, 1) * scale / sqrt(fan_in) drawn from ``generator`` (on its
@@ -46,7 +55,7 @@ def dense_init(generator: torch.Generator, shape, dtype, scale: float = 1.0,
 # Norms
 # --------------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(_acc(x.dtype))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
@@ -63,11 +72,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """x: [B, S, H, d]; positions: [B, S] -> rotated x (interleaved pairs
     x[..., ::2], x[..., 1::2], rotated in f32)."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)  # [d/2]
-    ang = positions[..., None].to(torch.float32) * freqs  # [B, S, d/2]
+    ct = _acc(x.dtype)
+    freqs = rope_freqs(d, theta, x.device).to(ct)  # [d/2]
+    ang = positions[..., None].to(ct) * freqs  # [B, S, d/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    xf1 = x[..., ::2].to(torch.float32)
-    xf2 = x[..., 1::2].to(torch.float32)
+    xf1 = x[..., ::2].to(ct)
+    xf2 = x[..., 1::2].to(ct)
     r1 = xf1 * cos - xf2 * sin
     r2 = xf2 * cos + xf1 * sin
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
@@ -132,11 +142,12 @@ def chunked_attention(
     q_pos = q_offset + torch.arange(Sq, device=dev)
 
     # scores in bf16 (optional) with f32 running max/denominator/accumulator
-    sd = torch.bfloat16 if bf16_scores else torch.float32
+    ct = _acc(q.dtype)
+    sd = torch.bfloat16 if bf16_scores else ct
     qs = q.to(sd)
-    m = torch.full((B, Sq, Hkv, G), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Sq, Hkv, G, d), dtype=torch.float32, device=dev)
+    m = torch.full((B, Sq, Hkv, G), -math.inf, dtype=ct, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=ct, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, d), dtype=ct, device=dev)
     for c in range(n_chunks):
         kci = k[:, c * kv_chunk : (c + 1) * kv_chunk]
         vci = v[:, c * kv_chunk : (c + 1) * kv_chunk]
@@ -147,15 +158,15 @@ def chunked_attention(
             valid = valid & (kv_pos[None, :] <= q_pos[:, None])
         vmask = valid[None, :, None, None, :]
         s = torch.where(vmask, s, torch.tensor(-math.inf, dtype=sd, device=dev))
-        m_new = torch.maximum(m, s.amax(dim=-1).to(torch.float32))
+        m_new = torch.maximum(m, s.amax(dim=-1).to(ct))
         # guard fully-masked rows (m_new == -inf)
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.exp(s - m_safe[..., None].to(sd))
         p = torch.where(vmask, p, torch.zeros((), dtype=sd, device=dev))
         alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * alpha + torch.sum(p, dim=-1, dtype=torch.float32)
-        pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
-                          vci.to(torch.float32))
+        l = l * alpha + torch.sum(p, dim=-1, dtype=ct)
+        pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).to(ct),
+                          vci.to(ct))
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
@@ -227,9 +238,9 @@ def attention(
             # decode: attend to the cache up to 'len' + S, keeping
             # causality within the step; scores in f32
             n = idx + S
-            qg = _merge_gqa(q, Hkv).to(torch.float32)
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qg,
-                             ck[:, :n].to(torch.float32))
+            ct = _acc(q.dtype)
+            qg = _merge_gqa(q, Hkv).to(ct)
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qg, ck[:, :n].to(ct))
             s = s / _f32_scalar(np.sqrt(np.float32(dh)))
             kv_pos = torch.arange(n, device=x.device)
             q_pos = idx + torch.arange(S, device=x.device)
@@ -258,7 +269,7 @@ def init_mlp(generator: torch.Generator, cfg: ArchConfig,
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = torch.nn.functional.silu((x @ params["w_gate"]).to(torch.float32)).to(x.dtype)
+    g = torch.nn.functional.silu((x @ params["w_gate"]).to(_acc(x.dtype))).to(x.dtype)
     return (g * (x @ params["w_up"])) @ params["w_down"]
 
 

@@ -226,4 +226,6 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     Returns (cache, logits [B, S, V_padded] at every prompt position)."""
     B, _ = tokens.shape
     cache = init_cache(model.cfg, B, max_len, device=tokens.device)
+    # the caches take the weights' type (float64 for a model cast with .double())
+    cache.update(k=cache["k"].to(model.embed.dtype), v=cache["v"].to(model.embed.dtype))
     return decode_step(model, cache, tokens)

@@ -129,7 +129,9 @@ def test_import_leaves_jax_and_repro_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.configs.tnn_columns, repro_torch.data.ucr, "
-        "repro_torch.clustering.metrics\n"
+        "repro_torch.clustering.metrics, repro_torch.serve, "
+        "repro_torch.testing, repro_torch.distributed.checkpoint, "
+        "repro_torch.launch.serve_tnn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -160,4 +162,11 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(monkeypatch):
         column.params_from_jax({"w": np.zeros((4, 2))})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulator.cluster_time_series(np.zeros((3, 4)), None, cfg)
+    from repro_torch.launch import serve_tnn
+    from repro_torch.serve import ClusteringService
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusteringService({"d0": cfg.with_threshold(2.0)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_tnn.main(["--smoke"])
     assert backend.default_device("cpu") == torch.device("cpu")

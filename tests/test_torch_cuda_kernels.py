@@ -702,3 +702,104 @@ def test_smoke_lm_on_card_matches_cpu(cuda_device):
             assert _rel(l_card.cpu(), l_cpu) < 1e-4
         full = T.forward(card, toks.to(cuda_device))
         assert _rel(full.cpu(), T.forward(cpu, toks)) < 1e-4
+
+
+# ----------------------------------------------------------------- serving
+def _serving_fleet():
+    """Four integer-grid designs (mus 1/1/1, no stabilizer) in two
+    envelopes, with integer initial weights from a seed."""
+    from repro_torch.core import simulator
+
+    fleet = {}
+    for i in range(4):
+        c = ColumnConfig(p=12, q=3 + i % 2, t_max=16 * (1 + (i // 2) % 2),
+                         stdp=STDPConfig(mu_capture=1.0, mu_backoff=1.0,
+                                         mu_search=1.0, stabilizer="none"))
+        fleet[f"d{i}"] = c.with_threshold(simulator.suggest_threshold(c))
+    rng = np.random.default_rng(6)
+    weights = {n: rng.integers(0, 8, (c.p, c.q)).astype(np.float32)
+               for n, c in fleet.items()}
+    return fleet, weights
+
+
+def test_serving_on_card_matches_cpu_and_pins_launches(cuda_device):
+    """The streaming service on the card against the same service on the
+    CPU (same fleet, weights and stream): equal ids and bit-equal
+    weights.  After ``warmup`` each batch is one fire_block launch, each
+    re-fit the fused_block launches of ``block_sub_launches``; nothing
+    else is launched and nothing is built."""
+    from repro_torch.serve import ClusteringService
+
+    fleet, weights = _serving_fleet()
+    kw = dict(batch_size=8, refit_every=16, refit_window=16, waste_cap=2.0,
+              weights=weights)
+    card = ClusteringService(fleet, device=cuda_device, **kw)
+    cpu = ClusteringService(fleet, device="cpu", **kw)
+    card.warmup()
+    cpu.warmup()
+    before = {k.name: k.launches for k in build.KERNELS}
+    builds, fits = [], []
+    orig_build, orig_fit = build.build_all, fused_column.fit_scan_padded
+
+    def record(w, xs, *a, **k):
+        fits.append((tuple(w.shape), k["t_window"], k["v_blk"], xs.shape[0]))
+        return orig_fit(w, xs, *a, **k)
+
+    build.build_all = lambda *a, **k: builds.append(a) or orig_build(*a, **k)
+    fused_column.fit_scan_padded = record
+    try:
+        rng = np.random.default_rng(2)
+        names = card.designs()
+        stream = [(rng.normal(size=12), names[s % 4]) for s in range(72)]
+        h_card = [card.submit(x, d) for x, d in stream]
+        card.flush()
+    finally:
+        build.build_all, fused_column.fit_scan_padded = orig_build, orig_fit
+    h_cpu = [cpu.submit(x, d) for x, d in stream]
+    cpu.flush()
+    assert [h.result().cluster for h in h_card] == [
+        h.result().cluster for h in h_cpu]
+    for d in fleet:
+        np.testing.assert_array_equal(card.weights(d), cpu.weights(d))
+    stats = card.stats()
+    assert stats.failed == 0 and stats.refit_failures == 0 and stats.refits >= 2
+    launched = {k.name: k.launches - before[k.name] for k in build.KERNELS}
+    want = sum(
+        len(fused_column.block_sub_launches(p, q, v, min(v, n - s), tw))
+        for (_, p, q), tw, v, n in fits for s in range(0, n, v))
+    assert len(fits) == stats.refits and not builds
+    assert launched["fire_block"] == stats.batches
+    assert launched["fused_block"] == want
+    for name in ("fused_step", "rnl_fire", "stdp_update", "flash_attention"):
+        assert launched[name] == 0, name
+
+
+def test_serving_durable_dir_recovers_across_devices(cuda_device, tmp_path):
+    """A durable directory written on the card, dropped without a drain
+    mid-stream, recovers on the card and on the CPU to weights
+    bit-identical to the uninterrupted service."""
+    from repro_torch.serve import ClusteringService
+
+    fleet, weights = _serving_fleet()
+    kw = dict(batch_size=4, refit_every=8, refit_window=8, weights=weights,
+              snapshot_every=2)
+    rng = np.random.default_rng(3)
+    stream = [(rng.normal(size=12), f"d{k % 4}") for k in range(80)]
+    live = ClusteringService(fleet, device=cuda_device,
+                             durable_dir=str(tmp_path / "svc"), **kw)
+    live.warmup()
+    for x, d in stream[:60]:
+        live.submit(x, d)
+    assert live.stats().wal_records > 0
+    seq = live._refit_seq
+    ref = ClusteringService(fleet, device=cuda_device, **kw)
+    ref.warmup()
+    for x, d in stream:
+        ref.submit(x, d)
+        if ref._refit_seq == seq:
+            break
+    for device in (cuda_device, "cpu"):
+        rec = ClusteringService.recover(str(tmp_path / "svc"), device=device)
+        assert rec.stats().replayed == live.stats().wal_records
+        for d in fleet:
+            np.testing.assert_array_equal(rec.weights(d), ref.weights(d))

@@ -279,3 +279,33 @@ def test_serve_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_lib.serve(configs.get_arch("granite-3-8b", smoke=True), batch=1,
                         prompt_len=4, tokens=2)
+
+
+@pytest.mark.parametrize("arch_id", ["granite-3-8b", "qwen3-14b"])
+def test_float64_model_is_the_f32_model_in_float64(arch_id):
+    """A model cast to float64 (the CPU reference of the card's f32 LM
+    check) computes norms, RoPE, SiLU, attention and its KV caches in
+    float64: its logits are float64 and agree with the f32 model's, and
+    with the JAX package's f32 forward, within f32 rounding."""
+    import copy
+
+    cfg = configs.get_arch(arch_id, smoke=True)
+    m32 = T.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    m64 = copy.deepcopy(m32).double()
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        c32, l32 = T.prefill(m32, toks[:, :7], max_len=10)
+        c64, l64 = T.prefill(m64, toks[:, :7], max_len=10)
+        assert l64.dtype == torch.float64 and c64["k"].dtype == torch.float64
+        assert _rel_err(l32, l64) < 2e-6
+        for t in (7, 8):
+            c32, l32 = T.decode_step(m32, c32, toks[:, t : t + 1])
+            c64, l64 = T.decode_step(m64, c64, toks[:, t : t + 1])
+            assert l64.dtype == torch.float64
+            assert _rel_err(l32, l64) < 2e-6
+        assert _rel_err(T.forward(m32, toks), T.forward(m64, toks)) < 2e-6
+    jcfg, params, model = _jax_model(arch_id)
+    want = jT.forward(params, jnp.asarray(toks.numpy().astype(np.int32)), jcfg)
+    with torch.inference_mode():
+        got = T.forward(copy.deepcopy(model).double(), toks)
+    assert _rel_err(got.numpy(), want) < 2e-5
