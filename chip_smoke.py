@@ -144,6 +144,30 @@ JAX or the JAX package.  Phases, each of which asserts:
     ``python -m repro_torch.launch.serve_tnn --smoke`` (its own SIGTERM,
     a drain, exit 0).
 
+20. the paper's Table II on the card, launch counters read around it: the
+    seven designs at published widths on their synthetic doubles, the
+    settings of benchmarks/table2_clustering.py (the first 240 series, 4
+    epochs, ``suggest_threshold``, DTCR at 60 steps): the port's
+    ``kmeans`` (labels equal to the CPU's), ``cluster_time_series`` in
+    mode='pallas' (one fused-step launch per fit, RNL-fire assignment;
+    ids equal to the CPU's) and ``dtcr.fit_predict`` (one step's loss
+    and gradients within 1e-4 of the largest of the CPU's from the same
+    parameters, TF32 off; the full fits on the card within about 90 s,
+    each cut of steps printed, and on the CPU in worker processes, the
+    Rand index of their labels printed; one step on the shortest series
+    under ``torch.profiler``: the device's idle share); per design the
+    three Rand indices, the normalized TNN and DTCR beside the paper's,
+    the TNN ``train_seconds``, the k-means seconds and the DTCR seconds a
+    step;
+21. ``costmodel.calibrate`` on the card (peak and bandwidth finite and
+    below the data sheet's, ``fused_eff`` in (0, 50]), then phase 8's
+    integer-grid sweep and phase 18's serving fleet under the calibrated
+    profile, launch counters read around each: ids and weights bit-equal
+    to the constants plan's; each bucket's chosen ``v_blk``, waste cap
+    and predicted us a volley beside its volley-block kernel time (CUDA
+    events); the profile cleared at the end.
+
+Phases 20 and 21 run after phase 18, before the kernels line (19).
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
@@ -1247,6 +1271,349 @@ def tnn_serving(build, fused_column, simulator, ucr, dev, card, timer) -> dict:
     return out
 
 
+# ------------------------------------- Table II and calibrated plans
+TABLE2_N, TABLE2_EPOCHS, DTCR_STEPS = 240, 4, 60  # benchmarks/table2_clustering.py
+DTCR_BUDGET_S = 90.0  # card seconds for the seven DTCR fits
+DTCR_WORKERS = 4      # CPU processes fitting the CPU's DTCR copies
+
+
+def dtcr_cpu_labels(args) -> tuple:
+    """One DTCR fit on the CPU, in a worker process of its own: (labels,
+    seconds)."""
+    x, cfg_kw, params = args
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.clustering import dtcr
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    labels = dtcr.fit_predict(x, dtcr.DTCRConfig(**cfg_kw), device="cpu",
+                              params=dtcr.params_from_jax(params, "cpu"))
+    return labels, time.perf_counter() - t0
+
+
+def dtcr_steps(est: dict) -> dict:
+    """Steps per design within DTCR_BUDGET_S, from each design's measured
+    seconds a step: the full DTCR_STEPS for the cheapest designs while
+    that leaves 10 steps (the centers move once) for each of the rest,
+    then the largest multiple of 10 that still does, 10 at least."""
+    left, out = DTCR_BUDGET_S, {}
+    order = sorted(est, key=est.get)
+    for i, name in enumerate(order):
+        rest = 10 * sum(est[n] for n in order[i + 1:])
+        steps = min(DTCR_STEPS, int((left - rest) / est[name] / 10) * 10)
+        out[name] = max(10, steps)
+        left -= out[name] * est[name]
+    return out
+
+
+def table2(build, simulator, column, ucr, dev, card) -> None:
+    """Phase 20: the paper's Table II on the card, the seven designs at
+    their published widths on their synthetic doubles, with the settings
+    of benchmarks/table2_clustering.py (the first 240 series, 4 epochs,
+    suggest_threshold, DTCR at 60 steps): the port's k-means, the TNN
+    column (``cluster_time_series``, mode='pallas') and DTCR, each on the
+    card, beside the CPU from the same inputs.  Launch counters reset
+    just before it and read just after."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    from repro_torch.clustering import dtcr, kmeans, metrics
+    from repro_torch.configs.tnn_columns import column_config
+
+    names = list(ucr.PAPER_COLUMNS)
+    t_phase = time.perf_counter()
+    data = {}
+    for name in names:
+        ds = ucr.load(name)
+        data[name] = (ds.x[:TABLE2_N], ds.y[:TABLE2_N], ds.n_classes)
+    rows = {name: {} for name in names}
+    for k in build.KERNELS:
+        k.launches = 0
+
+    # k-means and the TNN column, card against CPU
+    for name in names:
+        x, y, k = data[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, km = kmeans.kmeans(x, k, seed=0, device=dev)
+        km_s = time.perf_counter() - t0
+        _, km_cpu = kmeans.kmeans(x, k, seed=0, device="cpu")
+        assert np.array_equal(km, km_cpu), f"{name}: k-means labels differ"
+        cfg = column_config(name)
+        cfg = cfg.with_threshold(simulator.suggest_threshold(cfg))
+        w0 = column.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        kw = dict(epochs=TABLE2_EPOCHS, mode="pallas", seed=0, params=w0)
+        before = {kk.name: kk.launches for kk in build.KERNELS}
+        tnn = simulator.cluster_time_series(x, y, cfg, device="cuda", **kw)
+        grew = {kk.name: kk.launches - before[kk.name] for kk in build.KERNELS}
+        tnn_cpu = simulator.cluster_time_series(x, y, cfg, device="cpu", **kw)
+        assert tnn.lowering == "cuda" and grew["fused_step"] == 1, grew
+        assert np.array_equal(tnn.assignments, tnn_cpu.assignments), name
+        assert tnn.rand_index == tnn_cpu.rand_index
+        rows[name].update(ri_kmeans=metrics.rand_index(y, km), kmeans_s=km_s,
+                          ri_tnn=tnn.rand_index, train_seconds=tnn.train_seconds)
+        log(f"[table2] {name} N={x.shape[0]} L={x.shape[1]} k={k}: k-means "
+            f"labels card == CPU, {km_s!r} s; TNN {cfg.p}x{cfg.q} ids card == "
+            f"CPU, train_seconds={tnn.train_seconds!r} launches={grew}")
+
+    # DTCR: one step card against CPU from the same parameters, TF32 off,
+    # which also gives each design's seconds a step on the card
+    cfgs, params, est = {}, {}, {}
+    for name in names:
+        x, _, k = data[name]
+        cfgs[name] = dtcr.DTCRConfig(n_clusters=k, steps=DTCR_STEPS)
+        params[name] = dtcr.init_params(torch.Generator().manual_seed(0),
+                                        cfgs[name], "cpu")
+        out = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = dtcr._tree_map(lambda t: t.to(d), params[name])
+            xt = dtcr.normalize(torch.as_tensor(x, dtype=torch.float32, device=d))
+            c = dtcr.initial_centers(cfgs[name], d)
+            loss, g = dtcr.value_and_grad(p, xt, c, cfgs[name])
+            out[where] = (float(loss), np.concatenate(
+                [a.ravel() for a in dtcr._leaves(dtcr.params_to_numpy(g))]))
+            if where == "card":  # two warm steps: seconds a step
+                m = v = dtcr._tree_map(torch.zeros_like, p)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in (1, 2):
+                    _, g = dtcr.value_and_grad(p, xt, c, cfgs[name])
+                    with torch.no_grad():
+                        p, m, v = dtcr.adam_step(p, m, v, g, t, cfgs[name].lr)
+                torch.cuda.synchronize()
+                est[name] = (time.perf_counter() - t0) / 2
+        dl = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        dg = float(np.abs(out["card"][1] - out["cpu"][1]).max()
+                   / np.abs(out["cpu"][1]).max())
+        log(f"[table2] {name} DTCR one step card vs CPU: loss {out['card'][0]!r} "
+            f"vs {out['cpu'][0]!r} (rel {dl!r}), gradients rel to the largest "
+            f"{dg!r}; {est[name]!r} s a step on the card")
+        assert dl <= 1e-4 and dg <= 1e-4, (name, dl, dg)
+
+    # where a step's time goes: one step on the shortest series under
+    # torch.profiler (the longest, ~10^5 kernels a step, takes minutes to
+    # tabulate)
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in (min(names, key=lambda n: data[n][0].shape[1]),):
+        x = data[name][0]
+        p = dtcr._tree_map(lambda t: t.to(dev), params[name])
+        m = v = dtcr._tree_map(torch.zeros_like, p)
+        xt = dtcr.normalize(torch.as_tensor(x, dtype=torch.float32, device=dev))
+        c = dtcr.initial_centers(cfgs[name], dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, g = dtcr.value_and_grad(p, xt, c, cfgs[name])
+            with torch.no_grad():
+                dtcr.adam_step(p, m, v, g, 1, cfgs[name].lr)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, n_k = device_us(prof)
+        log(f"[profile] DTCR step {name} (N={x.shape[0]}, L={x.shape[1]}) wall "
+            f"{wall!r} ms (profiled); device busy {busy / 1e3!r} ms in {n_k} "
+            f"kernels; device idle share {1 - busy / 1e3 / wall!r} | {card}")
+
+    log(f"[table2] k-means, TNN, DTCR one-step checks and profile in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    steps = dtcr_steps(est)
+    for name in names:
+        if steps[name] < DTCR_STEPS:
+            log(f"[table2] cut: {name} DTCR at {steps[name]} of {DTCR_STEPS} "
+                f"steps (est. {est[name]!r} s a step; {DTCR_BUDGET_S} s for all seven)")
+    jobs = {}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(DTCR_WORKERS, mp_context=ctx) as ex:
+        for name in sorted(names, key=lambda n: -est[n] * steps[n]):
+            x, _, k = data[name]
+            jobs[name] = ex.submit(dtcr_cpu_labels, (
+                x, dict(n_clusters=k, steps=steps[name]),
+                dtcr.params_to_numpy(params[name])))
+        for name in names:
+            x, y, k = data[name]
+            cfg = dtcr.DTCRConfig(n_clusters=k, steps=steps[name])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = dtcr.fit_predict(x, cfg, device=dev, params=params[name])
+            fit_s = time.perf_counter() - t0
+            rows[name].update(ri_dtcr=metrics.rand_index(y, labels),
+                              dtcr_steps=steps[name],
+                              dtcr_s_step=fit_s / steps[name], labels=labels)
+        t_fits = time.perf_counter()
+        log(f"[table2] DTCR fits on the card in {t_fits - t_phase:.1f} s of the phase")
+        for name in names:
+            cpu_labels, cpu_s = jobs[name].result()
+            r = rows[name]
+            r["dtcr_card_cpu_ri"] = metrics.rand_index(cpu_labels, r.pop("labels"))
+            r["dtcr_cpu_s_step"] = cpu_s / steps[name]
+    launches = {k.name: k.launches for k in build.KERNELS}
+    log(f"[table2] waited {time.perf_counter() - t_fits:.1f} s for the CPU's "
+        f"DTCR fits; phase 20 in {time.perf_counter() - t_phase:.1f} s")
+
+    log("[table2] | design | RI k-means | RI TNN | RI DTCR | TNN norm (paper) | "
+        "DTCR norm (paper) | TNN train_seconds | k-means s | DTCR steps | "
+        "DTCR s/step card (CPU) | DTCR labels card vs CPU RI |")
+    for name in names:
+        r, paper = rows[name], ucr.PAPER_RAND_INDEX[name]
+        r["tnn_norm"] = metrics.normalized_rand(r["ri_tnn"], r["ri_kmeans"])
+        r["dtcr_norm"] = metrics.normalized_rand(r["ri_dtcr"], r["ri_kmeans"])
+        log(f"[table2] | {name} | {r['ri_kmeans']!r} | {r['ri_tnn']!r} | "
+            f"{r['ri_dtcr']!r} | {r['tnn_norm']!r} ({paper['tnn']}) | "
+            f"{r['dtcr_norm']!r} ({paper['dtcr']}) | {r['train_seconds']!r} | "
+            f"{r['kmeans_s']!r} | {r['dtcr_steps']} | {r['dtcr_s_step']!r} "
+            f"({r['dtcr_cpu_s_step']!r}) | {r['dtcr_card_cpu_ri']!r} |")
+        for key in ("ri_kmeans", "ri_tnn", "ri_dtcr"):
+            assert 0.0 <= r[key] <= 1.0, (name, key, r[key])
+    log(f"[table2] launches={launches} | {card}")
+    assert launches["fused_step"] == len(names) and launches["rnl_fire"] >= len(names)
+    assert all(v == 0 for n, v in launches.items()
+               if n not in ("fused_step", "rnl_fire")), launches
+
+
+def first_blocks(fused_column, sink: dict):
+    """Wrap ``fit_scan_padded`` and ``fused_block_padded`` so that
+    ``sink[(D, p, q, t_window)]`` keeps a copy of the arguments of each
+    envelope's first volley block; returns the function that unwraps
+    them."""
+    import torch
+
+    orig_fit, orig_block = fused_column.fit_scan_padded, fused_column.fused_block_padded
+    key = [None]
+
+    def fit(w, *a, **k):
+        key[0] = tuple(w.shape) + (k["t_window"],)
+        return orig_fit(w, *a, **k)
+
+    def block(*a, **k):
+        if key[0] not in sink:
+            sink[key[0]] = ([t.clone() if torch.is_tensor(t) else t for t in a], k)
+        return orig_block(*a, **k)
+
+    fused_column.fit_scan_padded, fused_column.fused_block_padded = fit, block
+
+    def unwrap():
+        fused_column.fit_scan_padded, fused_column.fused_block_padded = (
+            orig_fit, orig_block)
+
+    return unwrap
+
+
+def calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
+                     sweep, timer, dev, card) -> None:
+    """Phase 21: ``costmodel.calibrate`` on the card, then phase 8's
+    integer-grid sweep and one pass of phase 18's serving fleet under the
+    calibrated profile: weights and ids bit-equal to the constants plan's.
+    Each bucket's plan beside its first volley block's kernel time (CUDA
+    events, ``Timer``) per volley, for the sweep's buckets and the
+    service's.  Launch counters reset just before the two paths and read
+    just after; the profile is cleared at the end."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.serve import ClusteringService
+
+    t0 = time.perf_counter()
+    prof = costmodel.calibrate(persist=False)
+    log(f"[calibrate] {json.dumps(prof.to_json())} in "
+        f"{time.perf_counter() - t0!r} s | {card}")
+    assert costmodel.profile() == prof and prof.calibrated
+    assert math.isfinite(prof.hbm_bw) and 0 < prof.hbm_bw < HBM_BYTES_PER_S, prof
+    assert math.isfinite(prof.peak_flops) and 0 < prof.peak_flops < F32_OPS_PER_S, prof
+    assert 0 < prof.fused_eff <= 50, prof
+    try:
+        cfgs, w_init, const = sweep
+        ws = ucr.load("WordSynonyms")
+        n = ws.x.shape[0]
+        blocks = {}  # (D, p, q, t_window) -> its first volley block's arguments
+        for k in build.KERNELS:
+            k.launches = 0
+        unwrap = first_blocks(fused_column, blocks)
+        try:
+            res = simulator.cluster_time_series_many(
+                ws.x, ws.y, cfgs, epochs=EPOCHS, w_init=w_init, max_bucket=8,
+                device="cuda")
+        finally:
+            unwrap()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in build.KERNELS}
+        buckets = backend.envelope_buckets(
+            [(c.p, c.q, c.t_max) for c in cfgs], max_bucket=8, n_volleys=n,
+            epochs=EPOCHS)
+        assert len(buckets) == res[0].buckets, buckets
+        for env, members in buckets:
+            plan = res[members[0]].plan
+            a, k = blocks[(len(members),) + env]
+            ms = timer(lambda: fused_column.fused_block_padded(*a, **k), 20)
+            log(f"[calibrated] grid sweep bucket {env} D={len(members)}: "
+                f"v_blk={plan['v_blk']} (constants "
+                f"{const[members[0]].plan['v_blk']}) waste_cap={plan['waste_cap']!r} "
+                f"predicted us/volley={plan['predicted_step_us']!r} measured "
+                f"(kernel events, its first block) us/volley="
+                f"{1e3 * ms / a[1].shape[1]!r} | {card}")
+            assert plan["source"] == "costmodel" and plan["profile"] == prof.name
+        same = [np.array_equal(a.assignments, b.assignments)
+                and torch.equal(a.params["w"], b.params["w"])
+                for a, b in zip(res, const)]
+        log(f"[calibrated] grid sweep: {res[0].buckets} buckets (constants "
+            f"{const[0].buckets}), train_seconds={res[0].train_seconds!r} "
+            f"(constants, phase 8: {const[0].train_seconds!r}); ids and weights "
+            f"bit-equal to the constants plan's for {sum(same)} of {len(same)} "
+            f"designs; launches={launches} | {card}")
+        assert all(same), same
+        assert launches["fused_block"] > 0 and launches["fire_block"] > 0, launches
+        assert launches["fused_step"] == launches["rnl_fire"] == 0, launches
+
+        fleet, w0 = serving_fleet(grid=True)
+        stream = serving_stream(fleet, ucr)
+        kw = dict(batch_size=SERVE_BATCH, weights=w0)
+        with costmodel.override(None):  # the constants plan, construction to drain
+            svc_c = ClusteringService(fleet, device=dev, **kw)
+            svc_c.warmup()
+            t0 = time.perf_counter()
+            h_c = serve_all(svc_c, stream)
+            wall_c = time.perf_counter() - t0
+        svc_p = ClusteringService(fleet, device=dev, **kw)
+        svc_p.warmup()
+        blocks = {}
+        for k in build.KERNELS:
+            k.launches = 0
+        unwrap = first_blocks(fused_column, blocks)
+        try:
+            t0 = time.perf_counter()
+            h_p = serve_all(svc_p, stream)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+        finally:
+            unwrap()
+        launches = {k.name: k.launches for k in build.KERNELS}
+        assert_clean(svc_p, len(stream))
+        for b in svc_p.buckets():
+            f = b["fit_plan"]
+            first = blocks.get((len(b["designs"]),) + tuple(b["envelope"]))
+            measured = "not measured (no re-fit)"
+            if first is not None:
+                a, k = first
+                ms = timer(lambda: fused_column.fused_block_padded(*a, **k), 20)
+                measured = repr(1e3 * ms / a[1].shape[1])
+            log(f"[calibrated] serving bucket {b['envelope']} D={len(b['designs'])}: "
+                f"re-fit v_blk={f['v_blk']} waste_cap={f['waste_cap']!r} "
+                f"predicted us/volley={f['predicted_step_us']!r} measured "
+                f"(kernel events, its first block) us/volley={measured} | {card}")
+            assert f["source"] == "costmodel"
+        log(f"[calibrated] serving {len(stream)} requests: "
+            f"{len(stream) / wall_p!r} requests/s (constants plan "
+            f"{len(stream) / wall_c!r}, host clock); launches={launches} | {card}")
+        assert launches["fire_block"] > 0 and launches["fused_block"] > 0, launches
+        same_service(svc_c, svc_p, h_c, h_p, "serving, calibrated vs constants plan")
+    finally:
+        costmodel.set_profile(None)
+
+
 def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
     """Phase 16: the serving path at full width and depth, launch counters
     reset just before it and read just after; then again, warm.  Returns
@@ -2108,6 +2475,16 @@ def main() -> int:
     log(f"[serve_tnn] {tnn['rps']!r} requests/s, p50 {tnn['p50_ms']!r} ms, p99 "
         f"{tnn['p99_ms']!r} ms, batch {tnn['batch_ms']!r} ms, re-fit "
         f"{tnn['refit_ms']!r} ms (host clock) | {card}")
+
+    # 20 — the paper's Table II on the card: k-means, the TNN column, DTCR
+    table2(build, simulator, column, ucr, dev, card)
+
+    # 21 — calibration, then the grid sweep and the serving fleet under it
+    from repro_torch.core import backend
+    from repro_torch.roofline import costmodel
+
+    calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
+                     sweeps["grid"], timer, dev, card)
 
     # 19 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]

@@ -18,7 +18,8 @@
   other card raises: the kernels are built for sm_90a only.
 
 * **Padded-scan policy**: ``volley_block`` / ``execution_plan`` (the
-  constants plan: no device calibration yet), ``assign_lowering``, the
+  cost model's plan under an active device calibration, the constants
+  plan without one; ``roofline/costmodel.py``), ``assign_lowering``, the
   degradation ladder (``lowering_ladder``, ``cycle_exact``) and the
   envelope bucket policy (``envelope_buckets``).  The sweep and network
   layers call ``fused_column.fit_scan_padded`` / ``assign_padded``
@@ -94,12 +95,32 @@ def volley_block(
     return costmodel.const_v_blk(lowering, n_volleys, d)
 
 
-def execution_plan(kind: str, lowering: str, d: int, n_volleys: int):
-    """The ``ExecutionPlan`` of a padded scan.  Without a device
-    calibration (the port has none yet) it is the constants plan, as the
-    JAX package's is on an uncalibrated host."""
-    return costmodel.constants_plan(
-        kind, lowering, d, n_volleys, shards=design_shards(d)
+def execution_plan(
+    kind: str,
+    lowering: str,
+    d: int,
+    p_pad: int,
+    q_pad: int,
+    t_window: int,
+    n_volleys: int,
+    epochs: int = 1,
+    *,
+    w_max: Optional[int] = None,
+    response: str = "rnl",
+):
+    """The ONE policy front door: the ``ExecutionPlan`` of a padded scan
+    of ``d`` designs in a (p_pad, q_pad, t_window) envelope over
+    ``n_volleys`` x ``epochs``.  With a device calibration active
+    (``costmodel.load_or_calibrate()``; launchers opt in, libraries and
+    tests never do implicitly) the cost model chooses it; without one it
+    is the constants plan, exactly the schedule of an uncalibrated host.
+    A plan changes the blocking only, never a result.  ``w_max`` and
+    ``response`` complete the JAX package's signature: the kernel's
+    slope-form cost depends on neither (an SNL scan arrives here with
+    ``lowering='reference'``)."""
+    return costmodel.choose_plan(
+        kind, lowering, int(d), int(p_pad), int(q_pad), int(t_window),
+        int(n_volleys), int(epochs),
     )
 
 
@@ -196,19 +217,33 @@ def envelope_buckets(
     shapes: Sequence[tuple[int, int, int]],
     waste_cap: Optional[float] = None,
     max_bucket: Optional[int] = None,
+    n_volleys: Optional[int] = None,
+    epochs: int = 1,
 ) -> list[tuple[tuple[int, int, int], list[int]]]:
     """Pack (p, q, t_max) design shapes into shared padding envelopes.
 
     Greedy, largest fire volume first: a design joins the first bucket
     whose grown envelope (the elementwise max) keeps every member's
-    volume within ``waste_cap`` (None: ``ENVELOPE_WASTE_CAP``) and that
-    holds fewer than ``max_bucket`` designs (None: unbounded).  Returns
-    ``[(envelope, member_indices), ...]``; every index lands in exactly
-    one bucket.  Bucketing never changes a result: a design trains the
-    same under any envelope that contains it.
+    volume within ``waste_cap`` and that holds fewer than ``max_bucket``
+    designs (None: unbounded).  ``waste_cap`` None: with a device
+    calibration active AND a stream length (``n_volleys`` x ``epochs``),
+    the cost model's break-even (``costmodel.choose_waste_cap``: padding
+    waste recurs every volley, a shared envelope saves one bucket's fixed
+    cost); otherwise ``ENVELOPE_WASTE_CAP``.  Returns ``[(envelope,
+    member_indices), ...]``; every index lands in exactly one bucket.
+    Bucketing never changes a result: a design trains the same under any
+    envelope that contains it.
     """
     if waste_cap is None:
         waste_cap = ENVELOPE_WASTE_CAP
+        if n_volleys is not None and shapes:
+            waste_cap = costmodel.choose_waste_cap(
+                None, len(shapes),
+                max(p for (p, _, _) in shapes),
+                max(q for (_, q, _) in shapes),
+                max(t for (_, _, t) in shapes),
+                n_volleys=int(n_volleys), epochs=int(epochs),
+            )
     vols = [p * q * t for (p, q, t) in shapes]
     order = sorted(range(len(shapes)), key=lambda i: -vols[i])
     buckets: list[tuple[tuple[int, int, int], list[int]]] = []
@@ -228,10 +263,11 @@ def envelope_buckets(
 
 
 def design_shards(d: int) -> int:
-    """Cards a bucket's design axis of length ``d`` is split across: 1.
-    The port runs a sweep on one card; splitting the (collective-free)
-    design axis across cards is queued work."""
-    return 1
+    """Cards a bucket's design axis of length ``d`` is split across: 1
+    (``costmodel.choose_shards``).  The port runs a sweep on one card;
+    splitting the (collective-free) design axis across cards is queued
+    work."""
+    return costmodel.choose_shards(d)
 
 
 # ------------------------------------------------------------- generic fit

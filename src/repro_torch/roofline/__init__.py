@@ -1,2 +1,3 @@
-# Execution policy of the padded fused scans (see costmodel.py).
-from repro_torch.roofline import costmodel  # noqa: F401
+# Execution policy of the padded fused scans (see costmodel.py).  The
+# module is not imported here, so that ``python -m
+# repro_torch.roofline.costmodel`` runs it as its only copy.

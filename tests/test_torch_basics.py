@@ -129,7 +129,9 @@ def test_import_leaves_jax_and_repro_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.configs.tnn_columns, repro_torch.data.ucr, "
-        "repro_torch.clustering.metrics, repro_torch.serve, "
+        "repro_torch.clustering.metrics, repro_torch.clustering.kmeans, "
+        "repro_torch.clustering.dtcr, repro_torch.roofline.costmodel, "
+        "repro_torch.serve, "
         "repro_torch.testing, repro_torch.distributed.checkpoint, "
         "repro_torch.launch.serve_tnn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -170,3 +172,21 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_tnn.main(["--smoke"])
     assert backend.default_device("cpu") == torch.device("cpu")
+
+
+def test_baselines_and_calibration_without_device_raise_on_a_host_without_cuda(
+        monkeypatch):
+    from repro_torch.clustering import dtcr, kmeans
+    from repro_torch.roofline import costmodel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).normal(size=(6, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kmeans.kmeans(x, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dtcr.fit_predict(x, dtcr.DTCRConfig(steps=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dtcr.init_params(torch.Generator().manual_seed(0), dtcr.DTCRConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        costmodel.calibrate(persist=False)
+    assert costmodel.profile() is None

@@ -803,3 +803,82 @@ def test_serving_durable_dir_recovers_across_devices(cuda_device, tmp_path):
         assert rec.stats().replayed == live.stats().wal_records
         for d in fleet:
             np.testing.assert_array_equal(rec.weights(d), ref.weights(d))
+
+
+# ------------------------------------------- baselines and the cost model
+def test_kmeans_on_card_matches_cpu(cuda_device):
+    from repro_torch.clustering import kmeans
+    from repro_torch.data import ucr
+
+    for name in ("ECG200", "WordSynonyms"):
+        ds = ucr.load(name)
+        cc, cl = kmeans.kmeans(ds.x[:240], ds.n_classes, device=cuda_device)
+        hc, hl = kmeans.kmeans(ds.x[:240], ds.n_classes, device="cpu")
+        np.testing.assert_array_equal(cl, hl)
+        np.testing.assert_allclose(cc, hc, rtol=1e-5, atol=1e-5)
+
+
+def test_dtcr_step_on_card_matches_cpu(cuda_device):
+    """One step's loss and gradients from the same parameters, TF32 off:
+    within 1e-4 of the largest (f32 in another summation order)."""
+    from repro_torch.clustering import dtcr
+
+    cfg = dtcr.DTCRConfig(hidden=32, n_clusters=2)
+    x = np.random.default_rng(0).normal(size=(64, 96)).astype(np.float32)
+    params = dtcr.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = dtcr._tree_map(lambda t: t.to(dev), params)
+        xt = dtcr.normalize(torch.from_numpy(x).to(dev))
+        loss, g = dtcr.value_and_grad(p, xt, dtcr.initial_centers(cfg, dev), cfg)
+        out[dev.type] = (float(loss), dtcr.params_to_numpy(g))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    flat = {k: np.concatenate([a.ravel() for a in dtcr._leaves(g)])
+            for k, (_, g) in out.items()}
+    assert np.abs(flat["cuda"] - flat["cpu"]).max() <= 1e-4 * np.abs(flat["cpu"]).max()
+
+
+def test_calibrate_probes_the_card(cuda_device):
+    from repro_torch.roofline import costmodel
+
+    prev = costmodel.profile()
+    try:
+        p = costmodel.calibrate(force=True, persist=False)
+        assert costmodel.profile() == p and p.calibrated
+        assert (p.platform, p.device_kind, p.n_devices) == costmodel.host_identity()
+        assert 0 < p.hbm_bw < 3.35e12 and 0 < p.peak_flops < 67e12
+        assert 0 < p.fused_eff <= 50 and p.dispatch_s > 0 and p.bucket_s > 0
+        assert p.footprint_bytes == build.MAX_SMEM_BYTES and p.link_bw == 0.0
+    finally:
+        costmodel.set_profile(prev)
+
+
+def test_calibrated_sweep_is_bit_equal_to_constants(cuda_device):
+    """A 20-volley integer-grid sweep: the constants fold one block of 20,
+    the card's profile blocks of 16 (and may bucket otherwise); weights
+    and ids bit-equal."""
+    from repro_torch.core import simulator
+    from repro_torch.core.types import ColumnConfig, STDPConfig
+    from repro_torch.roofline import costmodel
+
+    rng = np.random.default_rng(0)
+    x, y = rng.normal(size=(20, 96)), rng.integers(0, 2, 20)
+    grid = STDPConfig(mu_capture=1.0, mu_backoff=1.0, mu_search=1.0,
+                      stabilizer="none")
+    cfgs = [ColumnConfig(p=96, q=q, t_max=t, stdp=grid)
+            for q in (2, 5) for t in (32, 64)]
+    cfgs = [c.with_threshold(simulator.suggest_threshold(c)) for c in cfgs]
+    w_init = [rng.integers(0, 8, (c.p, c.q)).astype(np.float32) for c in cfgs]
+
+    def run():
+        return simulator.cluster_time_series_many(
+            x, y, cfgs, epochs=2, w_init=w_init, device=cuda_device)
+
+    with costmodel.override(None):
+        const = run()
+    with costmodel.override(costmodel.PROFILES["h100-sxm"]):
+        planned = run()
+    for a, b in zip(const, planned):
+        assert (a.plan["v_blk"], b.plan["v_blk"]) == (20, 16)
+        assert np.array_equal(a.assignments, b.assignments)
+        assert torch.equal(a.params["w"], b.params["w"])

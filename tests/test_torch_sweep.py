@@ -321,7 +321,7 @@ def test_policy_constants_match_jax():
             for d in (None, 1, 2, 3, 12):
                 assert backend.volley_block(low, n, d) == jbackend.volley_block(jlow, n, d)
             for kind in ("fit", "assign"):
-                plan = backend.execution_plan(kind, low, 12, n)
+                plan = backend.execution_plan(kind, low, 12, 270, 50, 64, n)
                 jplan = jcostmodel.constants_plan(kind, jlow, 12, n)
                 assert plan.v_blk == jplan.v_blk and plan.waste_cap == jplan.waste_cap
                 assert plan.source == jplan.source == "constants"
@@ -330,7 +330,8 @@ def test_policy_constants_match_jax():
                 jmeta.pop("t_blk")  # a TPU tiling knob with no counterpart
                 jmeta.update(lowering=low, shards=1)
                 assert meta == jmeta
-    assert isinstance(backend.execution_plan("fit", "cuda", 2, 9), costmodel.ExecutionPlan)
+    assert isinstance(backend.execution_plan("fit", "cuda", 2, 270, 50, 64, 9),
+                      costmodel.ExecutionPlan)
     assert backend.design_shards(12) == 1
 
 
