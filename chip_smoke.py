@@ -124,7 +124,12 @@ JAX or the JAX package.  Phases, each of which asserts:
     at the granite prefill
     shape beside its plain version and PyTorch's
     ``scaled_dot_product_attention`` (bound by the operations of its
-    split-P products, the two products' alone printed beside it).
+    split-P products, the two products' alone printed beside it); then
+    the flash kernel at the LM families' shapes, each held per element
+    against its plain version and printed beside it, SDPA and its bound:
+    one kimi-k2 and one zamba2 prefill layer (head dim 112, B 4 x 2048,
+    GQA 64:8 and MHA 32), one whisper encoder layer (1500 frames,
+    non-causal) and whisper's decode cross-attention (Sq 1 over 1500).
 
 18. the TNN serving path, launch counters read around it: the streaming
     ``serve.ClusteringService`` over the seven Table II designs at
@@ -167,7 +172,28 @@ JAX or the JAX package.  Phases, each of which asserts:
     and predicted us a volley beside its volley-block kernel time (CUDA
     events); the profile cleared at the end.
 
-Phases 20 and 21 run after phase 18, before the kernels line (19).
+22. the LM families on the card, launch counters read around each model:
+    ``launch.serve.serve`` at full width (bf16, random weights from a
+    seed), batch 4, prompt 2048, 16 tokens, cold then warm, for olmoe-1b-7b
+    (16 layers), kimi-k2-1t-a32b (full width, 1 of its 61 layers: the
+    cut is printed), mamba2-370m (48), zamba2-7b (81), whisper-medium (24 +
+    24, zero frames) and qwen2-vl-7b (28): flash launches per prefill
+    (16, 1, 0, 13, 72, 28; whisper 24 more per decode step, its
+    cross-attention), nothing else launched, prefill ms, decode ms per
+    token, peak device memory, and one prefill and four decode steps
+    under ``torch.profiler`` (device busy and idle share); then each
+    family at full width, depth cut to hold one attention application
+    (2 layers; zamba2 7, one superblock of 6 and a tail block; whisper 2
+    + 2; kimi's experts cut to 16 on both sides, printed), f32, a 32-token
+    prompt and 4 decode steps, card logits against a float64 CPU
+    reference of the same weights < 1e-4 of the largest (MoE: the router
+    ids of every layer, card against CPU, first); and on those card
+    models the JAX package's serve-matches-forward property in f32 <
+    3e-3 for every family but MoE (printed, not held: at decode cap_e is
+    1 and the reference itself drops colliding assignments).
+    The phase prints its own seconds.
+
+Phases 20, 21 and 22 run after phase 18, before the kernels line (19).
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
@@ -198,6 +224,20 @@ STDP_SHAPES = ((13, 3), (270, 25), (650, 130), (7, 1), (540, 50))
 DSE_CPU_CHECKED = (10, 22)
 # the LM serving path: granite-3-8b's prefill shape
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "granite-3-8b", 4, 2048, 16
+# phase 22: (arch id, layers served (None: all), flash launches per prefill,
+# per decode step)
+FAMILY_SERVING = (
+    ("olmoe-1b-7b", None, 16, 0),
+    ("kimi-k2-1t-a32b", 1, 1, 0),  # 61 layers of 384 experts: ~2 TB in bf16
+    ("mamba2-370m", None, 0, 0),
+    ("zamba2-7b", None, 13, 0),
+    ("whisper-medium", None, 72, 24),
+    ("qwen2-vl-7b", None, 28, 0),
+)
+# card against float64 CPU: the depth that holds one attention application
+FAMILY_CHECK_LAYERS = {"zamba2-7b": 7}  # the rest: 2 (whisper 2 + 2)
+FAMILY_CHECK_PROMPT = 32
+KIMI_CHECK_EXPERTS = 16  # 384 experts in float64 would not fit the host
 
 
 def log(*a):
@@ -883,7 +923,7 @@ def check_flash(flash_lib, dev) -> float:
     return worst
 
 
-def serve_vs_forward(T, model, toks) -> tuple[float, float]:
+def serve_vs_forward(T, model, toks, frames=None) -> tuple[float, float]:
     """The JAX package's property: prefill of half the tokens, then one
     decode step per token, against the forward: (the largest difference
     relative to the largest logit, the largest logit)."""
@@ -891,8 +931,8 @@ def serve_vs_forward(T, model, toks) -> tuple[float, float]:
 
     s = toks.shape[1]
     with torch.inference_mode():
-        full = T.forward(model, toks)
-        cache, lg = T.prefill(model, toks[:, : s // 2], max_len=s + 2)
+        full = T.forward(model, toks, frames=frames)
+        cache, lg = T.prefill(model, toks[:, : s // 2], max_len=s + 2, frames=frames)
         outs = [lg]
         for t in range(s // 2, s):
             cache, lg = T.decode_step(model, cache, toks[:, t : t + 1])
@@ -1614,13 +1654,19 @@ def calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
         costmodel.set_profile(None)
 
 
-def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
-    """Phase 16: the serving path at full width and depth, launch counters
-    reset just before it and read just after; then again, warm.  Returns
-    its numbers."""
+def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
+               tag="serve") -> dict:
+    """The serving path at full width (phase 16: granite-3-8b at full
+    depth; phase 22: each family), launch counters reset just before it
+    and read just after: ``n_prefill`` flash launches a prefill (default
+    one a layer) and ``n_decode`` a decode step, nothing else; then again,
+    warm; then one prefill and four decode steps profiled.  Returns its
+    numbers."""
     import torch
 
+    n_prefill = cfg.n_layers if n_prefill is None else n_prefill
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                           device=dev)
@@ -1633,26 +1679,34 @@ def lm_serving(T, serve_lib, cfg, build, dev, card) -> dict:
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(r.prefill_logits).all()) and bool(
         torch.isfinite(r.last_logits).all())
-    log(f"[serve] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype} "
+    want = n_prefill + (LM_TOKENS - 1) * n_decode
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype} "
         f"({n_params} parameters): prefill[{LM_BATCH}x{LM_PROMPT}] "
         f"{r.prefill_s * 1e3!r} ms, {LM_TOKENS} tokens, decode "
-        f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches}; peak device "
-        f"memory {peak} B; logits finite={finite} | {card}")
-    log(f"[serve] sample generations: {r.generations[:2, :8].tolist()}")
+        f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches} (flash: "
+        f"{n_prefill} a prefill + {LM_TOKENS - 1} x {n_decode} a decode step); peak "
+        f"device memory {peak} B; logits finite={finite} | {card}")
+    log(f"[{tag}] sample generations: {r.generations[:2, :8].tolist()}")
     assert launches == {k.name: 0 for k in build.KERNELS} | {
-        "flash_attention": cfg.n_layers}, launches
+        "flash_attention": want}, (cfg.name, launches, want)
     assert finite and r.generations.shape == (LM_BATCH, LM_TOKENS)
     assert r.prefill_logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded)
     assert int(r.generations.max()) < cfg.vocab_size
-    out = dict(launches=launches["flash_attention"], peak=peak,
+    out = dict(launches=launches["flash_attention"], peak=peak, params=n_params,
                prefill_ms=r.prefill_s * 1e3, decode_ms=r.decode_s_per_token * 1e3)
     del r
     warm = serve_lib.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
                            tokens=LM_TOKENS, device=dev, model=model)
-    log(f"[serve] warm: prefill[{LM_BATCH}x{LM_PROMPT}] {warm.prefill_s * 1e3!r} ms, "
-        f"decode {warm.decode_s_per_token * 1e3!r} ms/token | {card}")
+    log(f"[{tag}] {cfg.name} warm: prefill[{LM_BATCH}x{LM_PROMPT}] "
+        f"{warm.prefill_s * 1e3!r} ms, decode {warm.decode_s_per_token * 1e3!r} "
+        f"ms/token | {card}")
     del warm
-    out["profile"] = profile_serving(T, model, cfg, dev, card)
+    frames = None
+    if cfg.family == "audio":  # the launcher's default frames
+        frames = torch.zeros((LM_BATCH, cfg.enc_seq, cfg.d_model),
+                             dtype=model.embed.dtype, device=dev)
+    out["profile"] = profile_serving(T, model, cfg, dev, card, frames=frames,
+                                     label="" if tag == "serve" else f"{cfg.name} ")
     return out
 
 
@@ -1670,7 +1724,19 @@ def device_us(prof, match=None) -> tuple[float, int]:
     return total, n
 
 
-def profile_serving(T, model, cfg, dev, card) -> dict:
+def top_kernels(prof, n: int = 4) -> str:
+    """The ``n`` kernels of a ``torch.profiler`` run with the most device
+    time: name (cut to 60 characters), ms, launches."""
+    import torch
+
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)[:n]
+    return "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3!r} ms in {e.count}"
+                     for e in rows)
+
+
+def profile_serving(T, model, cfg, dev, card, frames=None, label="") -> dict:
     """Where the serving time goes: one prefill and four decode steps
     under ``torch.profiler``, device time summed by kernel (the flash
     kernel apart) against the host clock of the same, profiled, run."""
@@ -1685,16 +1751,18 @@ def profile_serving(T, model, cfg, dev, card) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cache, logits = T.prefill(model, prompts, max_len=LM_PROMPT + 8)
+            cache, logits = T.prefill(model, prompts, max_len=LM_PROMPT + 8,
+                                      frames=frames)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         busy, n = device_us(prof)
         flash, n_flash = device_us(prof, "flash_kernel")
         out["prefill"] = (wall, busy / 1e3, n, flash / 1e3, n_flash)
-        log(f"[profile] prefill[{LM_BATCH}x{LM_PROMPT}] wall {wall!r} ms (profiled); "
+        log(f"[profile] {label}prefill[{LM_BATCH}x{LM_PROMPT}] wall {wall!r} ms (profiled); "
             f"device busy {busy / 1e3!r} ms in {n} kernels, of which flash_kernel "
             f"{flash / 1e3!r} ms in {n_flash}; device idle share "
             f"{1 - busy / 1e3 / wall!r} | {card}")
+        log(f"[profile] {label}prefill, top kernels by device time: {top_kernels(prof)}")
         tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
         del logits
         steps = 4
@@ -1708,20 +1776,22 @@ def profile_serving(T, model, cfg, dev, card) -> dict:
             wall = (time.perf_counter() - t0) * 1e3 / steps
         busy, n = device_us(prof)
         out["decode"] = (wall, busy / 1e3 / steps, n / steps)
-        log(f"[profile] decode step (B={LM_BATCH}) wall {wall!r} ms (profiled); device "
+        log(f"[profile] {label}decode step (B={LM_BATCH}) wall {wall!r} ms (profiled); device "
             f"busy {busy / 1e3 / steps!r} ms in {n / steps} kernels a step; device "
             f"idle share {1 - busy / 1e3 / steps / wall!r} | {card}")
     return out
 
 
-def flash_bound(b, sq, hq, hkv, d, elem_bytes,
-                split: bool = False) -> tuple[int, int]:
-    """Bytes and operations of one causal flash launch with Sq = Skv: Q,
-    K, V read and O written once; QK and PV over the causal triangle,
-    2 d operations per (query, key) pair each, and PV twice where P is
-    split into two bf16 parts (the bf16 kernel)."""
-    n_bytes = elem_bytes * (2 * b * sq * hq * d + 2 * b * sq * hkv * d)
-    n_ops = (6 if split else 4) * d * (sq * (sq + 1) // 2) * b * hq
+def flash_bound(b, sq, hq, hkv, d, elem_bytes, split: bool = False,
+                skv=None, causal: bool = True) -> tuple[int, int]:
+    """Bytes and operations of one flash launch (causal: Sq = Skv): Q, K,
+    V read and O written once; QK and PV over the causal triangle (every
+    pair where not causal), 2 d operations per (query, key) pair each,
+    and PV twice where P is split into two bf16 parts (the bf16 kernel)."""
+    skv = sq if skv is None else skv
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    n_bytes = elem_bytes * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    n_ops = (6 if split else 4) * d * pairs * b * hq
     return n_bytes, n_ops
 
 
@@ -1800,35 +1870,184 @@ def time_device_layout(fused_column, rnl_response, timer, dev, card) -> dict:
     return out
 
 
-def time_flash(flash_lib, timer, dev, card) -> tuple:
-    """The flash kernel at the granite prefill shape, beside its plain
-    version and PyTorch's fused attention (timed here, never called by the
-    port): (ms, plain ms, bound ms, what bounds it, library ms)."""
+# (label, B, Sq, Skv, Hq, Hkv, d, causal): one flash launch of each LM
+# path, granite-3-8b's prefill layer first (the kernels line's row)
+FLASH_TIMED = (
+    ("granite-3-8b prefill layer", LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 8, 128, True),
+    ("kimi-k2 prefill layer", LM_BATCH, LM_PROMPT, LM_PROMPT, 64, 8, 112, True),
+    ("zamba2 prefill layer", LM_BATCH, LM_PROMPT, LM_PROMPT, 32, 32, 112, True),
+    ("whisper encoder layer", LM_BATCH, 1500, 1500, 16, 16, 64, False),
+    ("whisper decode cross-attention", LM_BATCH, 1, 1500, 16, 16, 64, False),
+)
+
+
+def time_flash(flash_lib, timer, dev, card) -> dict:
+    """The flash kernel (bf16) at each LM path's shape: held per element
+    against the plain version in f32 on the same values (one bf16
+    rounding plus 1e-5 of the largest output), then timed beside the
+    plain version, PyTorch's fused attention (timed here, never called by
+    the port) and the bound of its split-P products.  Returns (ms, plain
+    ms, bound ms, what bounds it, library ms) by label."""
     import torch
     import torch.nn.functional as F
 
-    q, k, v = flash_inputs(LM_BATCH, LM_PROMPT, 32, 8, 128, torch.bfloat16, dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, d] views
+    out = {}
+    for label, b, sq, skv, hq, hkv, d, causal in FLASH_TIMED:
+        q, k, v = flash_inputs(b, sq, hq, hkv, d, torch.bfloat16, dev, skv=skv)
+        got = flash_lib.flash_attention(q, k, v, causal)
+        ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+        ratio = float(((got.float() - ref32).abs() / bound).max())
+        del ref32, bound
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, S, d] views
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
 
-    ms = timer(lambda: flash_lib.flash_attention(q, k, v, True), 20)
-    plain_ms = timer(lambda: flash_lib.flash_attention_plain(q, k, v, True), 3,
-                     warmup=1)
-    lib_ms = timer(sdpa, 20)
-    err = rel_err(sdpa().transpose(1, 2), flash_lib.flash_attention(q, k, v, True))
-    n_bytes, n_ops = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2, split=True)
-    b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    two = flash_bound(LM_BATCH, LM_PROMPT, 32, 8, 128, 2)[1]
-    log(f"[time] flash_attention B={LM_BATCH} S={LM_PROMPT} Hq=32 Hkv=8 d=128 bf16 "
-        f"causal ms={ms!r} plain_ms={plain_ms!r} sdpa_ms={lib_ms!r} "
-        f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops of the split-P "
-        f"products at the bf16 peak; the two products alone {two} ops, "
-        f"{two / BF16_OPS_PER_S * 1e3!r} ms); SDPA against the kernel, relative "
-        f"to the largest: {err} | {card}")
-    return ms, plain_ms, b_ms, by, lib_ms
+        ms = timer(lambda: flash_lib.flash_attention(q, k, v, causal), 20)
+        plain_ms = timer(lambda: flash_lib.flash_attention_plain(q, k, v, causal), 3,
+                         warmup=1)
+        lib_ms = timer(sdpa, 20)
+        err = rel_err(sdpa().transpose(1, 2), got)
+        n_bytes, n_ops = flash_bound(b, sq, hq, hkv, d, 2, split=True, skv=skv,
+                                     causal=causal)
+        b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        two = flash_bound(b, sq, hq, hkv, d, 2, skv=skv, causal=causal)[1]
+        out[label] = (ms, plain_ms, b_ms, by, lib_ms)
+        log(f"[time] flash_attention {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+            f"Hkv={hkv} d={d} bf16 causal={causal} ms={ms!r} plain_ms={plain_ms!r} "
+            f"sdpa_ms={lib_ms!r} bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops "
+            f"of the split-P products at the bf16 peak; the two products alone "
+            f"{two} ops, {two / BF16_OPS_PER_S * 1e3!r} ms); SDPA against the "
+            f"kernel, relative to the largest: {err}; per element against f32, "
+            f"largest |d| / (u|ref| + 1e-5 max|ref|)={ratio} (<= 1) | {card}")
+        assert ratio <= 1, ("flash_attention differs per element", label, ratio)
+        del q, k, v, qt, kt, vt, got
+    return out
+
+
+def family_check(T, moe_lib, cfg_full, dev, card) -> None:
+    """Phase 22, card against CPU: full width, depth cut to one attention
+    application, f32; card logits against a float64 CPU reference of the
+    same weights, prefill then 4 decode steps (MoE: the router ids of
+    every call first); then serve-matches-forward on the card model."""
+    import dataclasses
+
+    import torch
+
+    layers = FAMILY_CHECK_LAYERS.get(cfg_full.name, 2)
+    kw = dict(n_layers=layers, dtype="float32")
+    cuts = [f"{layers} of {cfg_full.n_layers} layers"]
+    if cfg_full.family == "audio":
+        kw["enc_layers"] = 2
+        cuts.append(f"2 of {cfg_full.enc_layers} encoder layers")
+    if cfg_full.name == "kimi-k2-1t-a32b":
+        kw["n_experts"] = KIMI_CHECK_EXPERTS
+        cuts.append(f"{KIMI_CHECK_EXPERTS} of {cfg_full.n_experts} experts (card and CPU)")
+    cfg = dataclasses.replace(cfg_full, **kw)
+    t0 = time.perf_counter()
+    card_m = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5),
+                           device=dev)
+    ref_m = T.Transformer(T.weights(card_m, lambda t: t.to("cpu", torch.float64)), cfg)
+    g = torch.Generator().manual_seed(6)
+    s = FAMILY_CHECK_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (2, s + 4), generator=g)
+    frames = (torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g)
+              if cfg.family == "audio" else None)
+    runs = (("card", card_m, dev, None if frames is None else frames.to(dev)),
+            ("cpu", ref_m, "cpu", None if frames is None else frames.double()))
+    ids = {"card": [], "cpu": []}
+    route = moe_lib.router_topk
+    side = ["card"]
+
+    def recording(x, router, top_k):
+        probs, got, aux = route(x, router, top_k)
+        ids[side[0]].append(got.cpu())
+        return probs, got, aux
+
+    moe_lib.router_topk = recording
+    steps = {"card": [], "cpu": []}
+    try:
+        with torch.inference_mode():
+            for name, m, d, fr in runs:
+                side[0] = name
+                c, lg = T.prefill(m, toks[:, :s].to(d), max_len=s + 6, frames=fr)
+                steps[name].append(lg)
+                for t in range(s, s + 4):
+                    c, lg = T.decode_step(m, c, toks[:, t : t + 1].to(d))
+                    steps[name].append(lg)
+                del c
+    finally:
+        moe_lib.router_topk = route
+    if cfg.family == "moe":
+        same = [bool(torch.equal(a, b)) for a, b in zip(ids["card"], ids["cpu"])]
+        log(f"[families] {cfg.name} router ids card vs CPU, each MoE call (layer x "
+            f"step): {sum(same)} of {len(same)} equal; "
+            f"{sum(int(a.numel()) for a in ids['cpu'])} assignments; the last "
+            f"call's first token: card {ids['card'][-1][0].tolist()}, CPU "
+            f"{ids['cpu'][-1][0].tolist()}")
+        assert len(same) == 5 * layers and all(same), same
+    logits = list(zip(steps["card"], steps["cpu"]))
+    errs = [rel_err(c, r) for c, r in logits]
+    log(f"[families] {cfg.name} full width, cut to {', '.join(cuts)}, f32: card "
+        f"logits vs the float64 CPU reference, relative to the largest, "
+        f"prefill({s}) then 4 decode steps: {errs} (< 1e-4; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    assert max(errs) < 1e-4, (cfg.name, errs)
+    assert all(bool(torch.isfinite(c).all()) for c, _ in logits)
+    if cfg.mrope:
+        # three distinct seeded position streams, so each M-RoPE section
+        # reads its own stream (the default positions are equal on all three)
+        pos = torch.randint(0, 4 * s, (3, 2, s), generator=g)
+        with torch.inference_mode():
+            got = T.forward(card_m, toks[:, :s].to(dev), positions=pos.to(dev))
+            want = T.forward(ref_m, toks[:, :s], positions=pos)
+        err = rel_err(got, want)
+        log(f"[families] {cfg.name} forward on three distinct M-RoPE position "
+            f"streams, card vs the float64 CPU reference, relative to the largest: "
+            f"{err} (< 1e-4)")
+        assert err < 1e-4 and bool(torch.isfinite(got).all()), (cfg.name, err)
+        del got, want
+    del ref_m, steps, logits
+    # the JAX package's test_serve_matches_forward: B 2, 12 tokens, f32
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8))
+    fr = None if frames is None else frames.to(dev)
+    err, _ = serve_vs_forward(T, card_m, toks, fr)
+    held = cfg.family != "moe"
+    log(f"[families] {cfg.name} serve vs forward logits relative to the largest "
+        f"{err} ({'< 3e-3' if held else 'not held: MoE decode drops collisions'})")
+    if held:
+        assert err < 3e-3, (cfg.name, err)
+    del card_m
+    torch.cuda.empty_cache()
+
+
+def lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card) -> dict:
+    """Phase 22: every non-dense LM family served at full width, then each
+    checked against a float64 CPU reference at full width."""
+    import dataclasses
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, n_layers, n_prefill, n_decode in FAMILY_SERVING:
+        cfg = get_arch(arch)
+        if n_layers is not None:
+            log(f"[families] {arch}: full width, {n_layers} of its {cfg.n_layers} "
+                f"layers ({cfg.param_count()} parameters at full depth, "
+                f"{2 * cfg.param_count()} B in bf16, past one card's memory)")
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        out[arch] = lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill,
+                               n_decode, tag="families")
+    for arch, _, _, _ in FAMILY_SERVING:
+        family_check(T, moe_lib, get_arch(arch), dev, card)
+    log(f"[families] phase 22 in {time.perf_counter() - t_phase:.1f} s | {card}")
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1861,6 +2080,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash_lib
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as T
 
     dev = torch.device("cuda")
@@ -2466,7 +2686,8 @@ def main() -> int:
     # the flash kernel at the granite prefill shape
     rows["device_layout"] = time_device_layout(
         fused_column, rnl_response, timer, dev, card)
-    rows["flash"] = time_flash(flash_lib, timer, dev, card)
+    flash_rows = time_flash(flash_lib, timer, dev, card)
+    rows["flash"] = flash_rows[FLASH_TIMED[0][0]]
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
 
@@ -2485,6 +2706,9 @@ def main() -> int:
 
     calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
                      sweeps["grid"], timer, dev, card)
+
+    # 22 — the MoE, SSM, hybrid, audio and VLM families on the card
+    lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)
 
     # 19 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]

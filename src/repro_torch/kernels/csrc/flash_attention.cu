@@ -49,6 +49,17 @@
 // Later work (FA3's): pingpong between the two warpgroups, and the
 // softmax of one tile overlapped with the next tile's products.
 //
+// Head dim 112 (kimi-k2's and zamba2's) runs the D = 128 instantiation on
+// tensor maps whose inner extent is 112 (flash_kernel<128, 112>): TMA
+// fills columns 112-127 of each row's second 64-column box with zeros, in
+// Q, K and V alike, so Q K^T is the 112-column product and columns
+// 112-127 of O stay 0; the epilogue stores 112 columns, and the caller's
+// scale is 1/sqrt(112).  No padded copy is made anywhere.  The price is
+// 128/112 of the products' operations.  (The other design, a D = 112
+// layout of seven 16-column slabs under the 32-byte swizzle with n112
+// wgmmas, would save that 14% at the cost of a second swizzle layout.)
+// The f32 kernel takes D = 112 as it is (seven 16-lane column groups).
+//
 // f32 (simt::flash_kernel): the two products in f32 on the CUDA cores
 // (the card check holds f32 to one f32 rounding, which TF32 cannot
 // meet): one block per (64-row query tile, q head, batch), 256 threads
@@ -530,11 +541,18 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The tile's head dim for a stored head dim DS: 112 runs in the D = 128
+// tiles (see the header).
+template <int DS>
+constexpr int tile_dim() { return DS == 112 ? 128 : DS; }
+
 // Accumulator fragment of wgmma m64nN (f32), thread l of warp w of the
 // warpgroup: element i sits at row 16 w + l / 4 + 8 ((i / 2) % 2) and
 // column 8 (i / 4) + 2 (l % 4) + i % 2.  The A fragment of a k16 step in
 // registers has the same order over that step's 16 columns.
-template <int D>
+// D is the tile's head dim, DS <= D the tensors' own (their row stride);
+// TMA zero-fills the tiles' columns DS..D-1.
+template <int D, int DS>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -713,9 +731,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* o_row =
-        out + ((static_cast<size_t>(b) * sq + row) * hq + h) * D + col;
+        out + ((static_cast<size_t>(b) * sq + row) * hq + h) * DS + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DS / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                 o[4 * j + 2 * r + 1] * inv);
@@ -749,18 +767,19 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of one [batch, rows, heads, D] bf16 tensor, as it lies,
-// in boxes of box_rows rows of one head and Shape<D>::kCol columns.
-template <int D>
+// The tensor map of one [batch, rows, heads, DS] bf16 tensor, as it lies,
+// in boxes of box_rows rows of one head and Shape<D>::kCol columns (those
+// at or past DS read as zeros).
+template <int D, int DS>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             int rows, int heads, int box_rows) {
   using S = Shape<D>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DS),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row_bytes = 2ull * D * heads;
-  const cuuint64_t strides[3] = {2ull * D, row_bytes, row_bytes * rows};
+  const cuuint64_t row_bytes = 2ull * DS * heads;
+  const cuuint64_t strides[3] = {2ull * DS, row_bytes, row_bytes * rows};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(S::kCol), 1,
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
@@ -774,27 +793,29 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// DS: the tensors' head dim; the kernel runs in tiles of tile_dim<DS>().
+template <int DS>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int hq, int hkv, bool causal, float scale,
            cudaStream_t stream) {
+  constexpr int D = tile_dim<DS>();
   if (skv == 0)  // no key: acc / max(l, 1e-30) is 0
     return static_cast<int>(cudaMemsetAsync(
-        out, 0, 2ull * b * sq * hq * D, stream));
+        out, 0, 2ull * b * sq * hq * DS, stream));
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!encode<D>(fn, &tq, q, b, sq, hq, kBQ) ||
-      !encode<D>(fn, &tk, k, b, skv, hkv, kBK) ||
-      !encode<D>(fn, &tv, v, b, skv, hkv, kBK))
+  if (!encode<D, DS>(fn, &tq, q, b, sq, hq, kBQ) ||
+      !encode<D, DS>(fn, &tk, k, b, skv, hkv, kBK) ||
+      !encode<D, DS>(fn, &tv, v, b, skv, hkv, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Shape<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DS><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, hq, hkv, causal,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -814,6 +835,8 @@ int by_head_dim(int d, F&& f) {
       return f(std::integral_constant<int, 32>());
     case 64:
       return f(std::integral_constant<int, 64>());
+    case 112:
+      return f(std::integral_constant<int, 112>());
     case 128:
       return f(std::integral_constant<int, 128>());
     default:
@@ -823,7 +846,7 @@ int by_head_dim(int d, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  d in {16, 32, 64, 128}; hq a multiple of
+// dtype: 0 float32, 1 bfloat16.  d in {16, 32, 64, 112, 128}; hq a multiple of
 // hkv; sq >= 1; q, k, v 16-byte aligned.  Launches on `stream`; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported d or dtype, or a tensor map cuTensorMapEncodeTiled refuses).

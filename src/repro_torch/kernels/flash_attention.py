@@ -1,4 +1,4 @@
-"""Causal online-softmax attention: the CUDA kernel
+"""Online-softmax attention, causal or not: the CUDA kernel
 ``csrc/flash_attention.cu`` and its plain PyTorch version.
 
 Port of the JAX package's ``kernels/flash_attention.py`` (``_flash_kernel``
@@ -17,7 +17,9 @@ products on the tensor cores (wgmma, with K and V tiles brought in by TMA),
 the scale applied after the product in f32 and the probabilities split into
 two bf16 parts for the PV product, so they keep about f32 accuracy, as the
 TPU kernel's f32 probabilities do; f32 runs both products in f32 on the
-CUDA cores.  The plain version is the LM's own ``layers.chunked_attention``
+CUDA cores.  Head dim 112 runs the bf16 kernel's D = 128 tiles on tensor
+maps whose inner extent is 112 (TMA reads the missing columns as zeros; no
+padded copy).  The plain version is the LM's own ``layers.chunked_attention``
 on the grouped view.  In bf16 that rounds the probabilities to bf16 before
 the PV product, as the JAX model's attention does.
 """
@@ -31,7 +33,7 @@ from repro_torch.kernels import build
 from repro_torch.models import layers
 
 # head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

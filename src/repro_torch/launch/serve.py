@@ -1,16 +1,18 @@
 """Serving launcher: prefill a batch of prompts, then decode greedily with
-the KV caches.
+the KV and state caches.
 
     python -m repro_torch.launch.serve --arch granite-3-8b --batch 4 \\
         --prompt-len 2048 --tokens 16
-    python -m repro_torch.launch.serve --arch granite-3-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-370m --smoke --device cpu
 
-Port of the JAX package's ``launch/serve.py``, dense family: the same
+Port of the JAX package's ``launch/serve.py``, every arch id: the same
 flags and ``[serve]`` lines, plus ``--device`` (``cuda`` unless asked
 otherwise; without a card it raises and never carries on on the CPU).
 Weights are random, drawn on the device from a seeded ``torch.Generator``,
-and so are the prompts.  Prefill runs the flash kernel once per layer on
-the card; each decode step is one token per request.
+and so are the prompts; the audio family's frame embeddings are zeros in
+the model's dtype, as in the JAX package.  On the card every attention of
+a prefill (and whisper's cross-attention of each decode step) runs the
+flash kernel; each decode step is one token per request.
 """
 from __future__ import annotations
 
@@ -56,10 +58,12 @@ def serve(
     device=None,
     seed: int = 0,
     model: Optional[T.Transformer] = None,
+    frames: Optional[torch.Tensor] = None,
 ) -> ServeResult:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     ``tokens - 1`` greedy decode steps, under ``torch.inference_mode()``.
-    ``model`` defaults to random weights from ``seed`` on ``device``."""
+    ``model`` defaults to random weights from ``seed`` on ``device``; the
+    audio family's ``frames`` [batch, enc_seq, d_model] default to zeros."""
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
@@ -67,9 +71,12 @@ def serve(
             model = T.init_params(cfg, generator=gen, device=dev)
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=gen, device=dev)
+        if cfg.family == "audio" and frames is None:
+            frames = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                 dtype=model.embed.dtype, device=dev)
         max_len = prompt_len + tokens + 1
         t0 = time.perf_counter()
-        cache, logits = T.prefill(model, prompts, max_len=max_len)
+        cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames)
         tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
         out = [tok.cpu().numpy()]
         t_prefill = time.perf_counter() - t0

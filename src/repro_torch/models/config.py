@@ -2,10 +2,10 @@
 
 The port's own copy of the JAX package's ``ArchConfig`` (``models/config.py``
 there), field for field, so ``dataclasses.asdict`` agrees across the two
-packages.  ``repro_torch/configs/`` holds one module per ported arch with
-the exact published hyper-parameters plus a reduced ``smoke()`` variant for
-CPU tests.  Fields of families the port does not run yet (MoE, SSM,
-hybrid, audio, M-RoPE) are kept so the schema stays one.
+packages.  ``repro_torch/configs/`` holds one module per arch with the
+exact published hyper-parameters plus a reduced ``smoke()`` variant for
+CPU tests.  Fields that steer XLA only (``remat``, ``unroll_scans``,
+``q_chunk``) are kept so the schema stays one.
 """
 from __future__ import annotations
 

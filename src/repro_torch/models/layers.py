@@ -1,22 +1,21 @@
-"""Shared transformer layers of the dense family: RMSNorm, RoPE, chunked
-online-softmax attention (prefill and the no-cache forward), cached
-decode attention, SwiGLU MLP.
+"""Shared transformer layers: RMSNorm, RoPE and M-RoPE, chunked
+online-softmax attention (prefill, the no-cache forward and
+cross-attention), cached decode attention, SwiGLU MLP.
 
-Port of the JAX package's ``models/layers.py``, dense self-attention path.
-The layers are plain functions over dicts of tensors, with thin
-``nn.Module``s (``RMSNorm``, ``Attention``, ``MLP``) that hold the weights
-in the JAX layout (``x @ w``) and call them.  Weights are stored in
-``cfg.dtype``; the places of rounding are the JAX package's: RMSNorm,
-RoPE and SiLU compute in f32 and cast back, attention scores are f32.
-A model whose weights were cast to float64 computes all of these in
-float64 instead (``_acc``): the CPU reference of the card's f32 check.
+Port of the JAX package's ``models/layers.py``.  The layers are plain
+functions over dicts of tensors, with thin ``nn.Module``s (``RMSNorm``,
+``Attention``, ``MLP``) that hold the weights in the JAX layout (``x @ w``)
+and call them.  Weights are stored in ``cfg.dtype``; the places of
+rounding are the JAX package's: RMSNorm, RoPE and SiLU compute in f32 and
+cast back, attention scores are f32.  A model whose weights were cast to
+float64 computes all of these in float64 instead (``_acc``): the CPU
+reference of the card's f32 check.
 
-On CUDA tensors the prefill and no-cache attention run the hand-written
-kernel (``kernels/flash_attention.py``) and raise if it fails; on CPU
-tensors they run ``chunked_attention``, its plain version.  Decode
-attention over the cache is plain PyTorch on either device, as the JAX
-package leaves it to XLA outside any kernel.  Not ported yet:
-cross-attention and M-RoPE.
+On CUDA tensors the prefill, no-cache and cross-attention run the
+hand-written kernel (``kernels/flash_attention.py``) and raise if it
+fails; on CPU tensors they run ``chunked_attention``, its plain version.
+Decode self-attention over the cache is plain PyTorch on either device, as
+the JAX package leaves it to XLA outside any kernel.
 """
 from __future__ import annotations
 
@@ -48,7 +47,7 @@ def dense_init(generator: torch.Generator, shape, dtype, scale: float = 1.0,
     device), cast to ``dtype``."""
     fan_in = shape[0]
     x = torch.randn(shape, generator=generator, device=device)
-    return (x * (scale / math.sqrt(fan_in))).to(dtype)
+    return x.mul_(scale / math.sqrt(fan_in)).to(dtype)  # in place: one f32 copy
 
 
 # --------------------------------------------------------------------------
@@ -61,7 +60,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 
 # --------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # --------------------------------------------------------------------------
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (
@@ -81,6 +80,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     r1 = xf1 * cos - xf2 * sin
     r2 = xf2 * cos + xf1 * sin
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: positions [3, B, S] (t, h, w streams); the
+    head dim's frequency pairs are split into three sections, one per
+    stream.  ``sections`` are half-dim section sizes (sum == d_head // 2).
+    The JAX package picks each pair's stream by a one-hot contraction,
+    which is exact; here it is an index."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    ct = _acc(x.dtype)
+    freqs = rope_freqs(d, theta, x.device).to(ct)  # [d/2]
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device))
+    ang_all = positions.to(ct)[..., None] * freqs  # [3, B, S, d/2]
+    pair = torch.arange(d // 2, device=x.device)
+    ang = ang_all.permute(1, 2, 3, 0)[:, :, pair, sec_id]  # [B, S, d/2]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    xf1 = x[..., ::2].to(ct)
+    xf2 = x[..., 1::2].to(ct)
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _mrope_sections(d_head: int) -> tuple:
+    """Qwen2-VL uses (16, 24, 24) half-dim sections for d_head=128; scale
+    proportionally for other head dims."""
+    half = d_head // 2
+    a = half // 4
+    b = (half - a) // 2
+    return (a, b, half - a - b)
 
 
 # --------------------------------------------------------------------------
@@ -195,32 +227,44 @@ def attention(
     positions: torch.Tensor,
     causal: bool = True,
     kv_cache: Optional[dict] = None,
+    cross_kv: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """GQA self-attention, all modes of the dense family.
+    """GQA attention, all modes.
 
     * training-path forward: kv_cache is None -> flash attention.
     * prefill: kv_cache = {'k','v','len'} with len 0 and S > 1 -> the
       prompt's k/v written into the cache, causal flash attention over
       the prompt only.
     * decode: S == 1 -> append one step, attend to the cache.
+    * cross-attention: cross_kv = (k, v) precomputed from the encoder, no
+      RoPE, ``qk_norm`` on q only, non-causal flash attention.
 
-    x: [B, S, D]; positions: [B, S].  The cache's 'k'/'v' are this layer's
-    [B, max_len, Hkv, d] and are updated in place ('len' is a Python int).
-    Returns (out [B, S, D], updated kv_cache or None).
+    x: [B, S, D]; positions: [B, S] (or [3, B, S] for M-RoPE).  The cache's
+    'k'/'v' are this layer's [B, max_len, Hkv, d] and are updated in place
+    ('len' is a Python int).  Returns (out [B, S, D], updated kv_cache or
+    None).
     """
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP, queue 1)")
     B, S, D = x.shape
     dh, Hq, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
     q = (x @ params["wq"]).reshape(B, S, Hq, dh)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, dh)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, dh)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, Hkv, dh)
+        v = (x @ params["wv"]).reshape(B, S, Hkv, dh)
+    else:
+        k, v = cross_kv
 
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
-        k = rmsnorm(k, params["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        if cross_kv is None:
+            k = rmsnorm(k, params["k_norm"])
+
+    if cross_kv is None:  # rope only applies to self-attention
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.rope_theta, _mrope_sections(dh))
+            k = apply_mrope(k, positions, cfg.rope_theta, _mrope_sections(dh))
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if kv_cache is not None:
@@ -249,7 +293,7 @@ def attention(
             p = torch.softmax(s, dim=-1).to(cv.dtype)
             o = torch.einsum("bqhgk,bkhd->bqhgd", p, cv[:, :n])
     else:
-        o = _attend(q, k, v, causal, cfg)
+        o = _attend(q, k, v, causal and cross_kv is None, cfg)
     o = o.reshape(B, S, Hq * dh)
     return o @ params["wo"], new_cache
 
@@ -302,8 +346,9 @@ class Attention(_Weights):
         super().__init__(weights)
         self.cfg = cfg
 
-    def forward(self, x, positions, causal=True, kv_cache=None):
-        return attention(self.params(), x, self.cfg, positions, causal, kv_cache)
+    def forward(self, x, positions, causal=True, kv_cache=None, cross_kv=None):
+        return attention(self.params(), x, self.cfg, positions, causal, kv_cache,
+                         cross_kv)
 
 
 class MLP(_Weights):

@@ -507,10 +507,14 @@ def _choose_plan_cached(
         )
         s = predict_step_s(prof, lowering, d, p_pad, q_pad, t_window, v_blk)
         cands.append((ok, s, v_blk))
-    # admissible candidates first (all of them limp through if none is);
-    # then the fastest, ties within WARM_TIE_TOL to the largest block
+    # admissible candidates first; if none is, one volley per launch
+    # limps through (the smallest block, as in the JAX package's chooser).
+    # Then the fastest, ties within WARM_TIE_TOL to the largest block
     if any(ok for ok, _, _ in cands):
         cands = [c for c in cands if c[0]]
+    else:
+        cands = [(False, predict_step_s(prof, lowering, d, p_pad, q_pad,
+                                        t_window, 1), 1)]
     best_s = min(s for _, s, _ in cands)
     _, s, v_blk = max(
         (c for c in cands if c[1] <= best_s * (1.0 + WARM_TIE_TOL)),

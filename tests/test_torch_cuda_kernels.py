@@ -659,6 +659,43 @@ def test_flash_bf16_tensor_core_kernel_at_ragged_edges(cuda_device, d, group, ca
         assert _rel(got, flash_lib.flash_attention_plain(q, k, v, causal)) < 2e-2
 
 
+@pytest.mark.parametrize("b,sq,hq,hkv,causal,skv", [
+    (1, 300, 64, 8, True, None),    # kimi-k2's GQA 64:8
+    (1, 300, 64, 8, False, None),
+    (2, 200, 32, 32, True, None),   # zamba2's MHA
+    (2, 200, 32, 32, False, None),
+    (2, 1, 16, 16, False, 1500),    # one decode row over 1500 keys
+    (1, 77, 8, 1, False, 130),      # Sq, Skv not multiples of the tiles
+    (1, 129, 8, 2, True, None),
+])
+def test_flash_head_dim_112_matches_plain(cuda_device, b, sq, hq, hkv, causal, skv):
+    """Head dim 112 through the kernel (bf16: the D = 128 tiles on tensor
+    maps of inner extent 112; f32: the CUDA-core kernel at D = 112), with
+    no padded copy: f32 within 2e-5 of the plain version; bf16 per element
+    against the plain version in f32 on the same bf16 values, within one
+    bf16 rounding plus 1e-5 of the largest output."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = _flash_inputs(b, sq, hq, hkv, 112, skv, seed=sq + hq)
+    ref = flash_lib.flash_attention_plain(q, k, v, causal)
+    before = build.FLASH_ATTENTION.launches
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got.cpu(), ref) < 2e-5
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (qb, kb, vb)), causal)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == qb.shape
+    got = got.cpu().float()
+    ref32 = flash_lib.flash_attention_plain(qb.float(), kb.float(), vb.float(), causal)
+    bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+    assert bool(((got - ref32).abs() <= bound).all())
+    assert _rel(got, flash_lib.flash_attention_plain(qb, kb, vb, causal)) < 2e-2
+
+
 def test_flash_attention_refuses_bad_operands(cuda_device):
     from repro_torch.kernels import flash_attention as flash_lib
 
@@ -702,6 +739,52 @@ def test_smoke_lm_on_card_matches_cpu(cuda_device):
             assert _rel(l_card.cpu(), l_cpu) < 1e-4
         full = T.forward(card, toks.to(cuda_device))
         assert _rel(full.cpu(), T.forward(cpu, toks)) < 1e-4
+
+
+# (arch id, flash launches per prefill, per decode step) of the smoke configs
+FAMILY_LAUNCHES = [
+    ("olmoe-1b-7b", 2, 0),        # one per layer
+    ("kimi-k2-1t-a32b", 2, 0),
+    ("mamba2-370m", 0, 0),        # attention-free
+    ("zamba2-7b", 2, 0),          # one per shared-block application
+    ("whisper-medium", 6, 2),     # encoder + decoder self + cross; cross per step
+    ("qwen2-vl-7b", 2, 0),
+]
+
+
+@pytest.mark.parametrize("arch_id,prefill_n,decode_n", FAMILY_LAUNCHES)
+def test_family_smoke_model_on_card_matches_cpu(cuda_device, arch_id, prefill_n, decode_n):
+    """Every family's smoke model (f32): card logits (the flash kernel on
+    every prefill attention and whisper's cross-attention) against CPU
+    logits (the plain version) from the same weights, prefill then two
+    decode steps, within 1e-4 of the largest; the flash launches counted."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch(arch_id, smoke=True)
+    g = torch.Generator().manual_seed(0)
+    cpu = T.init_params(cfg, generator=g, device="cpu")
+    card = T.params_from_jax(T.params_to_numpy(cpu), cfg, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21), generator=g)
+    fr = (torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g)
+          if cfg.family == "audio" else None)
+    fr_card = None if fr is None else fr.to(cuda_device)
+    with torch.inference_mode():
+        c_cpu, l_cpu = T.prefill(cpu, toks[:, :19], max_len=24, frames=fr)
+        before = build.FLASH_ATTENTION.launches
+        c_card, l_card = T.prefill(card, toks[:, :19].to(cuda_device), max_len=24,
+                                   frames=fr_card)
+        assert build.FLASH_ATTENTION.launches == before + prefill_n
+        assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        for t in (19, 20):
+            before = build.FLASH_ATTENTION.launches
+            c_cpu, l_cpu = T.decode_step(cpu, c_cpu, toks[:, t : t + 1])
+            c_card, l_card = T.decode_step(card, c_card, toks[:, t : t + 1].to(cuda_device))
+            assert build.FLASH_ATTENTION.launches == before + decode_n
+            assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        full = T.forward(card, toks.to(cuda_device), frames=fr_card)
+        assert _rel(full.cpu(), T.forward(cpu, toks, frames=fr)) < 1e-4
 
 
 # ----------------------------------------------------------------- serving

@@ -52,6 +52,10 @@ def _jax_flash(q, k, v, causal, dtype=jnp.float32):
     (1, 128, 2, 1, 32, False),
     (2, 384, 3, 1, 128, True),
     (1, 512, 1, 1, 64, True),
+    # head dim 112 (kimi-k2, zamba2): GQA 8:1 and MHA, causal and not
+    (1, 256, 8, 1, 112, True),
+    (2, 128, 4, 4, 112, False),
+    (1, 256, 2, 2, 112, True),
 ])
 def test_flash_plain_matches_jax_kernel(B, S, H, Hkv, d, causal):
     rng = np.random.default_rng(B * S + H)
@@ -66,13 +70,14 @@ def test_flash_plain_matches_jax_kernel(B, S, H, Hkv, d, causal):
 
 
 def test_flash_plain_matches_jax_kernel_bf16():
-    rng = np.random.default_rng(7)
-    q, k, v = _qkv(rng, 1, 128, 4, 2, 64)
-    want = np.asarray(_jax_flash(q, k, v, True, jnp.bfloat16), np.float32)
-    got = flash_lib.flash_attention(
-        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), True)
-    assert got.dtype == torch.bfloat16
-    assert _rel_err(got.float().numpy(), want) < 2e-2  # bf16 I/O tolerance
+    for d in (64, 112):  # 112: kimi-k2's and zamba2's head dim
+        rng = np.random.default_rng(7)
+        q, k, v = _qkv(rng, 1, 128, 4, 2, d)
+        want = np.asarray(_jax_flash(q, k, v, True, jnp.bfloat16), np.float32)
+        got = flash_lib.flash_attention(
+            *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), True)
+        assert got.dtype == torch.bfloat16
+        assert _rel_err(got.float().numpy(), want) < 2e-2  # bf16 I/O tolerance
 
 
 @pytest.mark.parametrize("kv_chunk", [16, 64, 1024])

@@ -26,6 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 DENSE = ("granite-3-8b", "qwen3-14b", "starcoder2-15b", "deepseek-coder-33b")
+ALL_IDS = tuple(jconfigs.ARCH_IDS)
 
 
 def _rel_err(got, want) -> float:
@@ -38,9 +39,11 @@ def _t(a):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch_id", DENSE)
+@pytest.mark.parametrize("arch_id", ALL_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_dense_configs_equal_jax(arch_id, smoke):
+    """Every arch id's config (the name kept from when the port had the
+    dense family only) equals the JAX package's, field for field."""
     cfg = configs.get_arch(arch_id, smoke=smoke)
     jcfg = jconfigs.get_arch(arch_id, smoke=smoke)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -50,11 +53,16 @@ def test_dense_configs_equal_jax(arch_id, smoke):
 
 
 def test_registry_ports_the_dense_family_only():
-    assert set(configs.ARCH_IDS) == set(DENSE)
-    assert set(configs.ARCH_IDS) | set(configs.NOT_PORTED) == set(jconfigs.ARCH_IDS)
-    for arch_id in configs.NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            configs.get_arch(arch_id)
+    """The name is kept from when only the dense family was ported: now
+    all ten ids are registered, each equal to the JAX package's config."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS and len(configs.ARCH_IDS) == 10
+    assert not hasattr(configs, "NOT_PORTED")
+    for arch_id in configs.ARCH_IDS:
+        for smoke in (False, True):
+            assert dataclasses.asdict(configs.get_arch(arch_id, smoke)) == \
+                dataclasses.asdict(jconfigs.get_arch(arch_id, smoke))
+    assert {configs.get_arch(a).family for a in configs.ARCH_IDS} == {
+        "dense", "moe", "ssm", "hybrid", "audio", "vlm"}
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("gpt-7")
     g = configs.get_arch("granite-3-8b")
@@ -240,20 +248,53 @@ def test_bf16_serve_matches_forward_as_closely_as_the_reference():
     assert e_port <= 2 * step
 
 
+def _uncounted(cfg) -> int:
+    """What the weights hold beyond ``param_count()``, which counts the
+    unpadded vocabulary, no norms (qk_norm's neither), no MoE router, the
+    SSM block without
+    its conv, D_skip and norm (its ``Di + 2H`` stands for them), the
+    zamba2 LoRA by its own formula, and the hybrid's applications
+    rounded up."""
+    D, L = cfg.d_model, cfg.n_layers
+    n = 2 * (cfg.vocab_padded - cfg.vocab_size) * D + D  # padding, final norm
+    if cfg.family in ("ssm", "hybrid"):
+        Di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        # per block: norm1; conv_w, A_log, D_skip, dt_bias, norm against Di + 2H
+        n += L * (D + 4 * (Di + 2 * N) + 3 * H + Di - (Di + 2 * H))
+    else:
+        n += 2 * L * D  # norm1, norm2
+    if cfg.family == "moe":
+        n += L * D * cfg.n_experts  # the router
+    if cfg.family == "hybrid":
+        apps = L // cfg.attn_every
+        r, Hq = cfg.shared_attn_lora_rank, cfg.n_heads * cfg.d_head
+        n += 2 * D + apps * (D * r + r * Hq)  # shared norms, the LoRA as stored
+        n -= -(-L // cfg.attn_every) * cfg._lora_params()  # as param_count counts it
+    if cfg.family == "audio":
+        n += cfg.enc_layers * 2 * D + D + L * D  # encoder norms, enc_norm, cross norms
+    if cfg.qk_norm:  # q_norm and k_norm of every attention
+        n_attn = {"ssm": 0, "hybrid": 1, "audio": cfg.enc_layers + 2 * L}.get(cfg.family, L)
+        n += n_attn * 2 * cfg.d_head
+    return n
+
+
 def test_init_params_is_seeded_and_dense_only():
-    cfg = configs.get_arch("granite-3-8b", smoke=True)
-    a = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    b = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
-    assert len(a.blocks) == cfg.n_layers
-    n = sum(p.numel() for p in a.parameters())
-    # param_count counts the unpadded vocabulary and no norms
-    pad = 2 * (cfg.vocab_padded - cfg.vocab_size) * cfg.d_model
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    assert n == cfg.param_count() + pad + norms
-    moe = dataclasses.replace(cfg, family="moe")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        T.init_params(moe, generator=torch.Generator(), device="cpu")
+    """The name is kept from when only the dense family was ported: now
+    seeded init on every family; the parameter count is param_count()
+    plus the vocabulary padding, the norms and what param_count leaves
+    out (``_uncounted``), and equals the JAX package's tree's."""
+    for arch_id in ALL_IDS:
+        cfg = configs.get_arch(arch_id, smoke=True)
+        a = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        b = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+        assert len(a.blocks) == cfg.n_layers
+        n = sum(p.numel() for p in a.parameters())
+        assert n == cfg.param_count() + _uncounted(cfg), arch_id
+        jcfg = jconfigs.get_arch(arch_id, smoke=True)
+        jn = sum(np.asarray(x).size for x in jax.tree.leaves(
+            jT.init_params(jax.random.key(0), jcfg)))
+        assert jn == n, arch_id
 
 
 # ------------------------------------------------------------ the launcher
