@@ -193,7 +193,30 @@ JAX or the JAX package.  Phases, each of which asserts:
     1 and the reference itself drops colliding assignments).
     The phase prints its own seconds.
 
-Phases 20, 21 and 22 run after phase 18, before the kernels line (19).
+23. LM training on the card, no flash launch in any training run (the
+    training forward takes ``chunked_attention``): (a) each of the ten
+    smoke configs, one f32 step (the optimizer of its full config: kimi
+    Adafactor, the rest AdamW; the Trainer's default schedule) on the
+    card against the CPU from the same weights (zamba2's LoRA b_q drawn,
+    not zeros) and batch, TF32 off: loss within 1e-5,
+    every updated leaf within 1e-5 of its largest entry, the MoE router's
+    ids equal; (b) granite-3-8b at full width, 1 layer, f32, B 1 x S 256:
+    loss, gradient norm and each gradient leaf against a float64 CPU
+    reference, < 1e-4 relative; (c) granite-3-8b at full width, 4 of its
+    40 layers (printed), bf16, remat, AdamW, B 4 x S 2048: 8 steps with
+    finite losses (host-clock ms a step, median of the warm steps, ended
+    by the loss reaching the host; tokens/s; peak device memory), one
+    more step under ``torch.profiler`` (device busy and idle share, top 4
+    kernels), ``chunked_attention`` timed alone at the layer's shapes (its
+    share of the step's device time), microbatches 2 against 1 over 3
+    steps within 2e-3, and a run preempted after 3 steps restored from
+    its checkpoint, its losses equal to the straight run's within rtol
+    1e-5, atol 1e-6 (bit-equality printed); (d) the granite smoke pillar:
+    30 steps at lr 2e-3, losses fall, then prefill and decode from the
+    trained model, finite; (e) ``launch.train --smoke`` as a subprocess.
+    The phase prints its own seconds.
+
+Phases 20, 21, 22 and 23 run after phase 18, before the kernels line (19).
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
@@ -238,6 +261,10 @@ FAMILY_SERVING = (
 FAMILY_CHECK_LAYERS = {"zamba2-7b": 7}  # the rest: 2 (whisper 2 + 2)
 FAMILY_CHECK_PROMPT = 32
 KIMI_CHECK_EXPERTS = 16  # 384 experts in float64 would not fit the host
+# phase 23: LM training at full width, depth cut
+TRAIN_ARCH, TRAIN_FULL_LAYERS, TRAIN_LAYERS = "granite-3-8b", 40, 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS, TRAIN_MICRO_STEPS, TRAIN_PREEMPT = 8, 3, 3
 
 
 def log(*a):
@@ -2050,6 +2077,296 @@ def lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card) -> dict:
     return out
 
 
+# ----------------------------------------------------------- LM training
+def train_step_vs_cpu(T, moe_lib, train_lib, tokens, cfg, dev) -> dict:
+    """Phase 23 (a): one f32 train step of a smoke config (its optimizer,
+    the Trainer's default schedule: lr 3e-5 at step 1) on the card against
+    the CPU, from the same weights and batch (B 2, S 16; whisper with
+    seeded frames): the loss, every updated leaf relative to its largest
+    entry, and the MoE router's ids of every call."""
+    import torch
+
+    from repro_torch.distributed.optimizer import tree_leaves
+
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    if cfg.family == "hybrid":  # b_q is zeros at init: give the LoRA product a gradient
+        with torch.no_grad():
+            b_q = cpu.shared_attn.lora.b_q
+            b_q.copy_(torch.randn(b_q.shape, generator=torch.Generator().manual_seed(1)) * 0.5)
+    card = T.params_from_jax(T.params_to_numpy(cpu), cfg, dev)
+    batch_cfg = tokens.DataConfig(cfg.vocab_size, 2, 16)
+    batch = tokens.TokenSource(batch_cfg).global_batch_at(0)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                      generator=torch.Generator().manual_seed(1))
+    ids = {"card": [], "cpu": []}
+    side = ["cpu"]
+    route = moe_lib.router_topk
+
+    def recording(x, router, top_k):
+        probs, got, aux = route(x, router, top_k)
+        ids[side[0]].append(got.cpu())
+        return probs, got, aux
+
+    out = {}
+    moe_lib.router_topk = recording
+    try:
+        for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            side[0] = name
+            opt = train_lib.Trainer(cfg, batch_cfg, train_lib.TrainConfig(),
+                                    device=d).optimizer
+            step = T.train_step_fn(cfg, opt)
+            model, _, metrics = step(model, opt.init(T.param_tree(model)),
+                                     {k: v.to(d) for k, v in batch.items()})
+            out[name] = (float(metrics["loss"]), T.params_to_numpy(model))
+    finally:
+        moe_lib.router_topk = route
+    loss_err = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    leaf_err = max(float(abs(a - b).max() / (abs(b).max() + 1e-30)) for a, b in zip(
+        tree_leaves(out["card"][1]), tree_leaves(out["cpu"][1])))
+    same = [bool(torch.equal(a, b)) for a, b in zip(ids["card"], ids["cpu"])]
+    # one call a MoE layer, and one more where remat recomputes the layer
+    n_calls = cfg.n_layers * (2 if cfg.remat == "full" else 1) if cfg.family == "moe" else 0
+    log(f"[train] {cfg.name} ({cfg.optimizer}, f32): one step card vs CPU: loss "
+        f"{out['card'][0]!r} vs {out['cpu'][0]!r} (rel {loss_err!r} < 1e-5), largest "
+        f"leaf error after the update {leaf_err!r} of the leaf's largest (< 1e-5); "
+        f"router ids {sum(same)} of {len(same)} calls equal")
+    assert loss_err <= 1e-5 and leaf_err <= 1e-5, (cfg.name, loss_err, leaf_err)
+    assert len(same) == len(ids["cpu"]) == n_calls and all(same), (cfg.name, same)
+    return {"loss_err": loss_err, "leaf_err": leaf_err}
+
+
+def train_grad_check(T, tokens, cfg, dev, card) -> None:
+    """Phase 23 (b): granite at full width, 1 layer, f32, B 1 x S 256: the
+    loss, the gradient norm and each gradient leaf on the card against a
+    float64 CPU reference of the same weights, relative, < 1e-4."""
+    import torch
+
+    from repro_torch.distributed.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(3),
+                          device=dev)
+    ref = T.Transformer(T.weights(model, lambda t: t.detach().to("cpu", torch.float64)), cfg)
+    batch = tokens.TokenSource(tokens.DataConfig(cfg.vocab_size, 1, 256, seed=4)).global_batch_at(0)
+    (loss, _), grads = T.loss_and_grads(model, {k: v.to(dev) for k, v in batch.items()})
+    (want, _), ref_grads = T.loss_and_grads(ref, batch)
+    got = [g.to("cpu", torch.float64) for g in tree_leaves(grads)]
+    wants = tree_leaves(ref_grads)
+    loss_err = abs(float(loss) - float(want)) / abs(float(want))
+    norm = float(torch.sqrt(sum(torch.sum(g * g) for g in got)))
+    ref_norm = float(torch.sqrt(sum(torch.sum(g * g) for g in wants)))
+    norm_err = abs(norm - ref_norm) / ref_norm
+    leaf_errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, wants)]
+    log(f"[train] {cfg.name} full width, {cfg.n_layers} layer, f32, B 1 x S 256: loss "
+        f"{float(loss)!r} vs float64 CPU {float(want)!r} (rel {loss_err!r}); gradient "
+        f"norm {norm!r} vs {ref_norm!r} (rel {norm_err!r}); largest leaf error relative "
+        f"to the leaf's largest {max(leaf_errs)!r} over {len(leaf_errs)} leaves (each "
+        f"< 1e-4; {time.perf_counter() - t0:.1f}s) | {card}")
+    assert loss_err < 1e-4 and norm_err < 1e-4 and max(leaf_errs) < 1e-4, (
+        loss_err, norm_err, leaf_errs)
+    del model, ref, grads, ref_grads, got, wants
+    torch.cuda.empty_cache()
+
+
+def train_full_width(T, L, train_lib, tokens, cfg, build, dev, card, timer) -> dict:
+    """Phase 23 (c): granite at full width and cut depth, bf16, remat,
+    AdamW, B x S = TRAIN_BATCH x TRAIN_SEQ: TRAIN_STEPS steps (finite
+    losses; host-clock ms a step, tokens/s, peak device memory), one more
+    step under ``torch.profiler`` (device busy and idle share, top
+    kernels), ``chunked_attention`` timed alone at the layer's shapes (its
+    share of the step's device time), microbatches 2 against 1, and a
+    preemption after TRAIN_PREEMPT steps resumed from its checkpoint.  No
+    flash launch."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    dc = tokens.DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    tc = train_lib.TrainConfig(steps=TRAIN_STEPS, warmup_steps=2)
+    flash0 = build.FLASH_ATTENTION.launches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = train_lib.Trainer(cfg, dc, tc, device=dev)
+    model, opt = tr.init_state()
+    n_params = sum(p.numel() for p in model.parameters())
+    out = tr.run(params=model, opt=opt)
+    straight = out["losses"]
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(list(tr.monitor.times)[1:])  # step 0 is the cold one
+    step_s = warm[len(warm) // 2]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    log(f"[train] {cfg.name} full width, {cfg.n_layers} of {TRAIN_FULL_LAYERS} layers "
+        f"({n_params} parameters), {cfg.dtype}, remat {cfg.remat}, {cfg.optimizer}, "
+        f"B {TRAIN_BATCH} x S {TRAIN_SEQ}: losses {straight!r}; host-clock ms a step "
+        f"{[t * 1e3 for t in tr.monitor.times]!r} (median of the warm steps "
+        f"{step_s * 1e3!r} ms, {tok_s!r} tokens/s); peak device memory {peak} B | {card}")
+    assert len(straight) == TRAIN_STEPS and all(map(math.isfinite, straight)), straight
+
+    # one more step, profiled
+    model, opt = out["params"], out["opt"]
+    batch = tr.data.global_batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, opt, metrics = tr.step(model, opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n = device_us(prof)
+    busy /= 1e3
+    idle = 1 - busy / wall if wall else float("nan")
+    log(f"[profile] train step {cfg.name} ({cfg.n_layers} layers, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}): wall {wall!r} ms (profiled); device busy {busy!r} ms in {n} "
+        f"kernels; device idle share {idle!r} | {card}")
+    log(f"[profile] train step, top kernels by device time: {top_kernels(prof)}")
+    del prof, model, opt, out, metrics, tr
+    torch.cuda.empty_cache()
+
+    # chunked_attention alone at the layer's shapes: under remat each layer
+    # runs its forward twice and its backward once
+    g = torch.Generator(device=dev).manual_seed(9)
+    G = cfg.n_heads // cfg.n_kv_heads
+    dt = L._dtype(cfg)
+    q = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv_heads, G, cfg.d_head), generator=g,
+                    device=dev).to(dt).requires_grad_(True)
+    k, v = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv_heads, cfg.d_head), generator=g,
+                        device=dev).to(dt).requires_grad_(True) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+
+    def fwd():
+        return L.chunked_attention(q, k, v, True, kv_chunk=cfg.kv_chunk)
+
+    t_fwd = timer(lambda: fwd().detach(), reps=3, warmup=1)
+    t_fb = timer(lambda: fwd().backward(do), reps=3, warmup=1)
+    attn_ms = cfg.n_layers * (t_fwd + t_fb)
+    share = attn_ms / busy if busy else float("nan")
+    log(f"[train] chunked_attention at B {TRAIN_BATCH} x S {TRAIN_SEQ}, Hq {cfg.n_heads}, "
+        f"Hkv {cfg.n_kv_heads}, d {cfg.d_head}, {cfg.dtype}, kv_chunk {cfg.kv_chunk} (CUDA "
+        f"events): forward {t_fwd!r} ms, forward + backward {t_fb!r} ms; {cfg.n_layers} "
+        f"layers x (2 forwards + 1 backward) = {attn_ms!r} ms, a share {share!r} of the "
+        f"profiled step's device busy time | {card}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # microbatches 2 against 1
+    tr = train_lib.Trainer(cfg, dc, dataclasses.replace(tc, microbatches=2), device=dev)
+    micro = tr.run(stop_after=TRAIN_MICRO_STEPS)["losses"]
+    gap = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(micro, straight))
+    log(f"[train] microbatches 2: losses {micro!r} vs 1: {straight[:TRAIN_MICRO_STEPS]!r} "
+        f"(largest gap {gap!r}, rtol = atol = 2e-3)")
+    assert all(abs(a - b) <= 2e-3 + 2e-3 * abs(b) for a, b in zip(micro, straight)), micro
+    del tr
+    torch.cuda.empty_cache()
+
+    # preempted after TRAIN_PREEMPT steps, resumed from the checkpoint
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tc_ck = dataclasses.replace(tc, checkpoint_dir=d, checkpoint_every=TRAIN_STEPS + 1)
+        t0 = time.perf_counter()
+        first = train_lib.Trainer(cfg, dc, tc_ck, device=dev).run(stop_after=TRAIN_PREEMPT)
+        t_save = time.perf_counter() - t0
+        del first
+        torch.cuda.empty_cache()
+        tr = train_lib.Trainer(cfg, dc, tc_ck, device=dev)
+        t0 = time.perf_counter()
+        model, opt, step = tr.restore()  # what run() does on a checkpoint
+        t_restore = time.perf_counter() - t0
+        tr.ckpt = None  # no second ~12 GB save at the end
+        resumed = tr.run(start_step=step, params=model, opt=opt)["losses"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bit_equal = resumed == straight[TRAIN_PREEMPT:]
+    log(f"[train] preempted after {TRAIN_PREEMPT} steps ({t_save:.1f}s with its blocking "
+        f"checkpoint), restored at step {step} in {t_restore:.1f}s: losses {resumed!r} vs "
+        f"straight {straight[TRAIN_PREEMPT:]!r}; bit-equal {bit_equal}")
+    assert step == TRAIN_PREEMPT
+    for a, b in zip(resumed, straight[TRAIN_PREEMPT:]):
+        assert abs(a - b) <= 1e-6 + 1e-5 * abs(b), (resumed, straight)
+    assert len(resumed) == TRAIN_STEPS - TRAIN_PREEMPT
+    flash = build.FLASH_ATTENTION.launches - flash0
+    log(f"[train] flash launches in the training runs: {flash} (0: training runs "
+        f"chunked_attention) | phase (c) {time.perf_counter() - t_phase:.1f}s")
+    assert flash == 0, flash
+    del model, opt, tr
+    torch.cuda.empty_cache()
+    return {"step_ms": step_s * 1e3, "tokens_s": tok_s, "peak": peak, "idle": idle,
+            "attn_share": share, "busy_ms": busy, "wall_ms": wall, "bit_equal": bit_equal}
+
+
+def train_pillar(T, tokens, train_lib, cfg, dev) -> None:
+    """Phase 23 (d): the JAX package's LM pillar on the card: the granite
+    smoke config trained 30 steps at lr 2e-3 (losses fall), then a prefill
+    and a decode step from the trained model, finite."""
+    import torch
+
+    dc = tokens.DataConfig(cfg.vocab_size, 8, 32)
+    out = train_lib.Trainer(cfg, dc, train_lib.TrainConfig(steps=30, warmup_steps=3,
+                                                           peak_lr=2e-3), device=dev).run()
+    losses = out["losses"]
+    with torch.inference_mode():
+        cache, lg = T.prefill(out["params"], torch.ones((2, 8), dtype=torch.int32, device=dev),
+                              max_len=16)
+        cache, lg = T.decode_step(out["params"], cache,
+                                  torch.ones((2, 1), dtype=torch.int32, device=dev))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"[train] pillar {cfg.name}: 30 steps, mean loss of the first 5 {first!r}, of the "
+        f"last 5 {last!r}; prefill + decode from the trained model finite "
+        f"{bool(torch.isfinite(lg).all())}")
+    assert last < first and bool(torch.isfinite(lg).all())
+
+
+def lm_training(T, get_arch, build, dev, card, timer) -> dict:
+    """Phase 23: LM training on the card (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import tokens
+    from repro_torch.distributed import train_loop as train_lib
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+
+    from repro_torch.configs import ARCH_IDS
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash0 = build.FLASH_ATTENTION.launches
+    for arch in ARCH_IDS:  # the optimizer of each full config (kimi: Adafactor)
+        cfg = dataclasses.replace(get_arch(arch, smoke=True), optimizer=get_arch(arch).optimizer)
+        train_step_vs_cpu(T, moe_lib, train_lib, tokens, cfg, dev)
+    assert build.FLASH_ATTENTION.launches == flash0
+    full = get_arch(TRAIN_ARCH)
+    train_grad_check(T, tokens, dataclasses.replace(full, n_layers=1, dtype="float32"),
+                     dev, card)
+    assert build.FLASH_ATTENTION.launches == flash0
+    assert full.n_layers == TRAIN_FULL_LAYERS and full.dtype == "bfloat16"
+    out = train_full_width(T, L, train_lib, tokens,
+                           dataclasses.replace(full, n_layers=TRAIN_LAYERS), build, dev,
+                           card, timer)
+    train_pillar(T, tokens, train_lib, get_arch(TRAIN_ARCH, smoke=True), dev)
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+         "--steps", "5"],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    log(f"[train] launch.train --smoke (rc {r.returncode}): {r.stdout.strip()}")
+    assert r.returncode == 0 and "[train] granite-3-8b: 5 steps" in r.stdout, r.stderr[-3000:]
+    log(f"[train] {TRAIN_ARCH} at full width, {TRAIN_LAYERS} of {TRAIN_FULL_LAYERS} layers, "
+        f"bf16, remat, AdamW, B {TRAIN_BATCH} x S {TRAIN_SEQ}: {out['step_ms']!r} ms a step "
+        f"(host clock, median of the warm steps), {out['tokens_s']!r} tokens/s, peak device "
+        f"memory {out['peak']} B, device idle share {out['idle']!r}, chunked_attention "
+        f"share {out['attn_share']!r} of device time | {card}")
+    log(f"[train] phase 23 in {time.perf_counter() - t_phase:.1f} s | {card}")
+    return out
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -2709,6 +3026,9 @@ def main() -> int:
 
     # 22 — the MoE, SSM, hybrid, audio and VLM families on the card
     lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)
+
+    # 23 — LM training on the card
+    lm_training(T, get_arch, build, dev, card, timer)
 
     # 19 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]

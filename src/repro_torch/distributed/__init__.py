@@ -1,5 +1,12 @@
-# Distributed runtime of the port: straggler monitoring (StepMonitor, used
-# by the design-space exploration and the streaming service) and the
-# checkpointer (the service's live-weight snapshots).
-from repro_torch.distributed import checkpoint, straggler  # noqa: F401
+# Distributed runtime of the port: optimizers (AdamW, factored Adafactor,
+# int8 error-feedback compression), the trainer with microbatches and
+# checkpoint restart, elastic resume, straggler monitoring, and the
+# checkpointer (also the streaming service's live-weight snapshots).
+from repro_torch.distributed import (  # noqa: F401
+    checkpoint,
+    elastic,
+    optimizer,
+    straggler,
+    train_loop,
+)
 from repro_torch.distributed.checkpoint import Checkpointer  # noqa: F401

@@ -17,6 +17,9 @@ Layout (one directory per step), the JAX package's:
   never mistaken for a complete one.
 * ``restore`` returns host numpy arrays, or tensors on the device the
   caller names.
+* numpy has no bfloat16: a bf16 tensor is stored as its 16-bit patterns
+  (an int16 ``.npy``, ``"bfloat16"`` in the manifest) and restored as a
+  bf16 tensor (on the CPU when no device is named).
 
 The port's own copy of the JAX package's ``distributed/checkpoint.py``
 (which flattens with JAX's tree utilities).  The streaming service's
@@ -66,8 +69,17 @@ def _unflatten(like, leaves: list):
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy().copy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        return x.cpu().numpy().copy()
     return np.array(x)
+
+
+def _dtype_name(x, h: np.ndarray) -> str:
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(h.dtype)
 
 
 class Checkpointer:
@@ -86,7 +98,7 @@ class Checkpointer:
         spec = {
             "step": step,
             "names": [n for n, _ in flat],
-            "dtypes": [str(h.dtype) for h in host],
+            "dtypes": [_dtype_name(x, h) for (_, x), h in zip(flat, host)],
             "shapes": [list(h.shape) for h in host],
         }
 
@@ -184,6 +196,14 @@ class Checkpointer:
             shape = tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
             if tuple(h.shape) != tuple(shape):
                 raise ValueError(f"shape mismatch {h.shape} vs {shape}")
-        if device is not None:
-            loaded = [torch.from_numpy(h).to(device) for h in loaded]
+
+        def leaf(h, dtype: str):
+            if device is None and dtype != "bfloat16":
+                return h
+            t = torch.from_numpy(h)
+            if dtype == "bfloat16":
+                t = t.view(torch.bfloat16)
+            return t if device is None else t.to(device)
+
+        loaded = [leaf(h, d) for h, d in zip(loaded, spec["dtypes"])]
         return _unflatten(like, loaded), step

@@ -96,8 +96,17 @@ def flash_attention(
     [B, Sq, Hq, d] in q's dtype (float32 or bfloat16).
 
     CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
-    kernel, or raise.
+    kernel, or raise.  The kernel has no backward: under autograd (grad
+    mode on and an input that requires grad) it raises on either device,
+    rather than return a result without a gradient; training takes
+    ``layers.chunked_attention`` (``layers._attend`` decides).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: q, k or v requires grad with grad "
+            "mode on; differentiate layers.chunked_attention instead, or call "
+            "under torch.no_grad() / torch.inference_mode()"
+        )
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal)
     _check_cuda(q, k, v)

@@ -4,8 +4,9 @@ The port's own copy of the JAX package's ``ArchConfig`` (``models/config.py``
 there), field for field, so ``dataclasses.asdict`` agrees across the two
 packages.  ``repro_torch/configs/`` holds one module per arch with the
 exact published hyper-parameters plus a reduced ``smoke()`` variant for
-CPU tests.  Fields that steer XLA only (``remat``, ``unroll_scans``,
-``q_chunk``) are kept so the schema stays one.
+CPU tests.  ``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``); fields that steer XLA only
+(``unroll_scans``, ``q_chunk``) are kept so the schema stays one.
 """
 from __future__ import annotations
 

@@ -11,11 +11,14 @@ cast back, attention scores are f32.  A model whose weights were cast to
 float64 computes all of these in float64 instead (``_acc``): the CPU
 reference of the card's f32 check.
 
-On CUDA tensors the prefill, no-cache and cross-attention run the
-hand-written kernel (``kernels/flash_attention.py``) and raise if it
-fails; on CPU tensors they run ``chunked_attention``, its plain version.
-Decode self-attention over the cache is plain PyTorch on either device, as
-the JAX package leaves it to XLA outside any kernel.
+The weights are trainable parameters.  Outside autograd (serving, under
+``torch.inference_mode()``) the prefill, no-cache and cross-attention run
+the hand-written kernel (``kernels/flash_attention.py``) on CUDA tensors
+and raise if it fails, and ``chunked_attention``, its plain version, on
+CPU tensors.  Under autograd they run ``chunked_attention`` on any device,
+the function the JAX package differentiates (``_attend`` decides, in one
+place).  Decode self-attention over the cache is plain PyTorch on either
+device, as the JAX package leaves it to XLA outside any kernel.
 """
 from __future__ import annotations
 
@@ -207,9 +210,13 @@ def chunked_attention(
 
 def _attend(q, k, v, causal: bool, cfg: ArchConfig) -> torch.Tensor:
     """q [B, S, Hq, d] over k, v [B, Skv, Hkv, d]: ``chunked_attention``
-    with the config's chunk and score dtype on the CPU, the flash kernel
-    (f32 scores) anywhere else."""
-    if q.device.type == "cpu":
+    with the config's chunk and score dtype under autograd (grad mode on
+    and an input that requires grad) on any device, since the flash kernel
+    has no backward, and on the CPU; the flash kernel (f32 scores) on CUDA
+    tensors otherwise.  The one place the training and serving paths of
+    attention part."""
+    training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if training or q.device.type == "cpu":
         return flash_lib.flash_attention_plain(
             q, k, v, causal, kv_chunk=cfg.kv_chunk,
             bf16_scores=cfg.attn_bf16_scores)
@@ -231,7 +238,8 @@ def attention(
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """GQA attention, all modes.
 
-    * training-path forward: kv_cache is None -> flash attention.
+    * training-path forward: kv_cache is None -> ``chunked_attention``
+      under autograd, the flash kernel on the card outside it (``_attend``).
     * prefill: kv_cache = {'k','v','len'} with len 0 and S > 1 -> the
       prompt's k/v written into the cache, causal flash attention over
       the prompt only.
@@ -321,13 +329,13 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 # Modules over the functions
 # --------------------------------------------------------------------------
 class _Weights(nn.Module):
-    """Holds a dict of weights as frozen parameters; ``params()`` gives the
-    dict back for the functions above."""
+    """Holds a dict of weights as trainable parameters; ``params()`` gives
+    the dict back for the functions above."""
 
     def __init__(self, weights: dict):
         super().__init__()
         for name, w in weights.items():
-            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(w))
 
     def params(self) -> dict:
         return dict(self.named_parameters(recurse=False))

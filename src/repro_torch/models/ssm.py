@@ -114,8 +114,12 @@ def ssd_chunked(
     # it a strided copy (3x the device time of the whole block on the card)
     cs = dA_cs.permute(0, 1, 3, 2).contiguous()  # [B, nc, H, q]
     mask = cs[..., :, None] - cs[..., None, :]  # [B, nc, H, q, q]
-    mask.exp_()
-    mask.masked_fill_(~torch.ones((q, q), dtype=torch.bool, device=x.device).tril(), 0.0)
+    upper = ~torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    if mask.requires_grad:  # autograd saves exp's output: no writes into it
+        mask = torch.exp(mask).masked_fill(upper, 0.0)
+    else:  # in place: serving holds one mask, not three
+        mask.exp_()
+        mask.masked_fill_(upper, 0.0)
     scores = torch.einsum("bcin,bcjn->bcij", Cc.to(cd), Bc.to(cd)).to(ct)
     # the mask rounded to the compute dtype, times the scores: products of
     # two cd values, exact in ct

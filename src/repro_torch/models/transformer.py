@@ -11,13 +11,18 @@ Port of the JAX package's ``models/transformer.py``:
                 conv frontend is a stub: callers pass the frames)
 
 ``init_params`` builds a ``Transformer`` module (``ModuleList``s of
-``Block``s over the JAX layout), ``forward`` gives logits, ``init_cache``,
-``decode_step`` and ``prefill`` serve with per-layer KV and state caches.
-The JAX package stacks the layers' weights on a leading axis and scans over
-them; here the blocks are a Python loop over modules, and
-``params_from_jax`` / ``params_to_numpy`` carry the stacked trees across
-both ways.  The caches are updated in place (their 'len' is a Python int)
-where the JAX package returns new ones.
+``Block``s over the JAX layout, trainable parameters), ``forward`` gives
+logits, ``loss_fn`` the training loss and ``train_step_fn`` one optimizer
+step; ``init_cache``, ``decode_step`` and ``prefill`` serve with per-layer
+KV and state caches.  The JAX package stacks the layers' weights on a
+leading axis and scans over them; here the blocks are a Python loop over
+modules, ``params_from_jax`` / ``params_to_numpy`` carry the stacked trees
+across both ways, and ``param_tree`` views the model as the stacked tree
+(each layer's parameter a slice of one tensor per leaf), which is what the
+optimizer updates.  ``cfg.remat == 'full'`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``) where the JAX package
+checkpoints it.  The caches are updated in place (their 'len' is a
+Python int) where the JAX package returns new ones.
 
 The JAX package's mesh hooks (``set_mesh``, ``_constrain_tokens``) pin
 activation sharding on a device mesh and route the MoE FFN through its
@@ -30,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import layers as L
@@ -46,7 +52,7 @@ _STACKED = ("blocks", "enc_blocks", "cross_blocks")
 class Block(nn.Module):
     """One layer's weights as modules, named as in the JAX tree: ``norm*``
     an ``RMSNorm``, ``attn`` an ``Attention``, ``mlp`` an ``MLP``, any
-    other dict (``moe``, ``ssm``, ``lora``) a holder of frozen weights.
+    other dict (``moe``, ``ssm``, ``lora``) a holder of trainable weights.
     Decoder blocks hold norm1/norm2/attn/(mlp|moe), SSM blocks norm1/ssm,
     whisper's cross blocks norm/attn, zamba2's shared block
     norm1/norm2/attn/mlp/lora.  It holds weights only: the family loops
@@ -78,8 +84,8 @@ class Transformer(nn.Module):
     def __init__(self, weights: dict, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(weights["embed"], requires_grad=False)
-        self.lm_head = nn.Parameter(weights["lm_head"], requires_grad=False)
+        self.embed = nn.Parameter(weights["embed"])
+        self.lm_head = nn.Parameter(weights["lm_head"])
         self.final_norm = L.RMSNorm(weights["final_norm"])
         self.blocks = nn.ModuleList(Block(b, cfg) for b in weights["blocks"])
         self.shared_attn = (Block(weights["shared_attn"], cfg)
@@ -292,20 +298,28 @@ def _shared_attn(model: Transformer, h, positions, app: int, kv_cache=None):
 
 def _hybrid_layers(model: Transformer, h, positions, cache=None):
     """Zamba2: every ``attn_every`` mamba blocks, the shared attention
-    block; the trailing ``n_layers % attn_every`` blocks after the last.
-    With a cache, each layer's conv and SSM states and each application's
-    KV are written into it."""
+    block (each such superblock recomputed in the backward pass under
+    remat, as the JAX package checkpoints it); the trailing ``n_layers %
+    attn_every`` blocks after the last.  With a cache, each layer's conv
+    and SSM states and each application's KV are written into it."""
     cfg = model.cfg
-    per = cfg.attn_every
-    n_super = _n_attn_apps(cfg) * per
-    for i, blk in enumerate(model.blocks):
-        h = _ssm_step(blk, h, cache, i)
-        if i < n_super and (i + 1) % per == 0:
-            app = i // per
-            kv = None if cache is None else {
-                "k": cache["k"][app], "v": cache["v"][app], "len": cache["len"]}
-            h, _ = _shared_attn(model, h, positions, app, kv_cache=kv)
+    n_apps = _n_attn_apps(cfg)
+    for app in range(n_apps):
+        h = _remat(cfg, lambda hh, a=app: _superblock(model, hh, positions, a, cache), h)
+    for i in range(n_apps * cfg.attn_every, cfg.n_layers):
+        h = _ssm_step(model.blocks[i], h, cache, i)
     return h
+
+
+def _superblock(model: Transformer, h, positions, app: int, cache=None):
+    """Zamba2's superblock ``app``: its ``attn_every`` mamba layers, then
+    the shared block with that application's KV cache, if any."""
+    per = model.cfg.attn_every
+    for i in range(app * per, (app + 1) * per):
+        h = _ssm_step(model.blocks[i], h, cache, i)
+    kv = None if cache is None else {
+        "k": cache["k"][app], "v": cache["v"][app], "len": cache["len"]}
+    return _shared_attn(model, h, positions, app, kv_cache=kv)[0]
 
 
 def _ssm_step(blk: Block, h, cache, i: int):
@@ -319,14 +333,25 @@ def _ssm_step(blk: Block, h, cache, i: int):
     return h
 
 
+def _remat(cfg: ArchConfig, fn, h: torch.Tensor) -> torch.Tensor:
+    """``fn(h)``; where ``cfg.remat == 'full'`` and autograd records, under
+    ``torch.utils.checkpoint`` (where the JAX package checkpoints the
+    block): its activations are recomputed in the backward pass, which
+    changes memory, not numerics."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False)
+    return fn(h)
+
+
 def _encode_audio(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     """Whisper encoder over frame embeddings [B, T_enc, D]: non-causal
-    self-attention (the flash kernel on the card) and the MLP per layer."""
+    self-attention (the flash kernel on the card outside autograd) and the
+    MLP per layer."""
     B, T_enc, _ = frames.shape
     pos = _positions(0, B, T_enc, frames.device)
     h = frames
     for blk in model.enc_blocks:
-        h, _ = _dense_block(blk, h, pos, causal=False)
+        h = _remat(model.cfg, lambda hh, b=blk: _dense_block(b, hh, pos, causal=False)[0], h)
     return model.enc_norm(h)
 
 
@@ -350,7 +375,10 @@ def forward(model: Transformer, tokens: torch.Tensor,
             frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token logits [B, S, V_padded] (training / prefill path, no caches).
     ``positions`` [B, S] ([3, B, S] for M-RoPE) default to 0..S-1 on every
-    stream; the audio family needs ``frames`` [B, T_enc, D]."""
+    stream; the audio family needs ``frames`` [B, T_enc, D].  Under
+    autograd with ``cfg.remat == 'full'`` each block (zamba2: each
+    superblock; whisper: each encoder and decoder layer) is recomputed in
+    the backward pass, where the JAX package checkpoints it."""
     cfg = model.cfg
     B, S = tokens.shape
     h = model.embed[tokens]  # gather
@@ -358,18 +386,23 @@ def forward(model: Transformer, tokens: torch.Tensor,
         positions = _positions(0, B, S, tokens.device, cfg.mrope)
     if cfg.family in ("dense", "vlm", "moe"):
         for blk in model.blocks:
-            h, _ = _dense_block(blk, h, positions)
+            h = _remat(cfg, lambda hh, b=blk: _dense_block(b, hh, positions)[0], h)
     elif cfg.family == "ssm":
         for blk in model.blocks:
-            h, _ = _ssm_layer(blk, h)
+            h = _remat(cfg, lambda hh, b=blk: _ssm_layer(b, hh)[0], h)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, positions)
     elif cfg.family == "audio":
         if frames is None:
             raise ValueError("audio family needs `frames` (stub embeddings)")
         enc = _encode_audio(model, frames)
-        for i, (blk, xblk) in enumerate(zip(model.blocks, model.cross_blocks)):
-            h, _ = _dense_block(blk, h, positions, cross=(xblk, *_cross_kv(model, enc, i)))
+
+        def layer(hh, i):
+            cross = (model.cross_blocks[i], *_cross_kv(model, enc, i))
+            return _dense_block(model.blocks[i], hh, positions, cross=cross)[0]
+
+        for i in range(cfg.n_layers):
+            h = _remat(cfg, lambda hh, i=i: layer(hh, i), h)
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     h = model.final_norm(h)
@@ -469,3 +502,151 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
             cache["xk"][i].copy_(xk)
             cache["xv"][i].copy_(xv)
     return decode_step(model, cache, tokens)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def _param_lists(model: Transformer) -> dict:
+    """The JAX tree with, at each leaf of a stacked tree, the list of the
+    layers' parameters; elsewhere the parameter itself."""
+    def transpose(layers):
+        if isinstance(layers[0], dict):
+            return {k: transpose([blk[k] for blk in layers]) for k in layers[0]}
+        return list(layers)
+
+    return {k: transpose(v) if k in _STACKED else v
+            for k, v in weights(model).items()}
+
+
+class _StackedView:
+    """The model bound to the JAX layout: ``params`` and ``grads`` are
+    trees of tensors (one [L, ...] tensor per stacked leaf), every
+    parameter's storage is its slice of ``params`` and its ``.grad`` its
+    slice of ``grads``."""
+
+    def __init__(self, model: Transformer):
+        self.bound = []  # (parameter, its slice of params, its slice of grads)
+
+        def bind(ps):
+            layers = ps if isinstance(ps, list) else [ps]
+            with torch.no_grad():
+                p = torch.stack([q.detach() for q in layers])
+            g = torch.zeros_like(p)
+            for i, q in enumerate(layers):
+                q.data = p[i]
+                q.grad = g[i]
+                self.bound.append((q, p[i], g[i]))
+            return (p, g) if isinstance(ps, list) else (p[0], g[0])
+
+        pairs = _tree_map(bind, _param_lists(model))
+        self.params = _tree_map(lambda pg: pg[0], pairs)
+        self.grads = _tree_map(lambda pg: pg[1], pairs)
+
+    def holds(self) -> bool:
+        """True while every parameter still lives in its slice (a ``.to()``
+        or ``.double()`` of the model gives it new storage)."""
+        return all(q.data_ptr() == p.data_ptr() and q.dtype == p.dtype
+                   and q.device == p.device for q, p, _ in self.bound)
+
+    def zero_grads(self) -> None:
+        for _, _, g in self.bound:
+            g.zero_()
+        for q, _, g in self.bound:
+            q.grad = g
+
+    def collect_grads(self) -> dict:
+        """The gradients of the last backward pass in ``grads`` (a backward
+        pass accumulates into a bound ``.grad`` in place; a gradient it put
+        elsewhere is copied in)."""
+        for q, _, g in self.bound:
+            if q.grad is not None and q.grad.data_ptr() != g.data_ptr():
+                g.copy_(q.grad)
+                q.grad = g
+        return self.grads
+
+
+def _view(model: Transformer) -> _StackedView:
+    view = model.__dict__.get("_stacked_view")
+    if view is None or not view.holds():
+        view = _StackedView(model)
+        model.__dict__["_stacked_view"] = view
+    return view
+
+
+def param_tree(model: Transformer) -> dict:
+    """The model's weights as the JAX package's parameter tree: each leaf
+    of a stacked tree (``blocks``, ``enc_blocks``, ``cross_blocks``) ONE
+    tensor [L, ...] whose slices the layers' parameters are, every other
+    leaf the parameter's own storage.  The first call moves the layers'
+    parameters into the stacked tensors (values unchanged); later calls
+    return the same tensors.  Writing a leaf in place writes the model.
+    The optimizer updates this tree, so its per-leaf rules (AdamW's decay
+    of ndim >= 2, Adafactor's factoring and RMS clip, the EF scale) see
+    the stacked leaves the JAX package's rules see."""
+    return _view(model).params
+
+
+def assign_params(model: Transformer, new: dict) -> None:
+    """Write a tree in the layout of ``param_tree`` into the model."""
+    with torch.no_grad():
+        _tree_map(lambda dst, src: dst.copy_(src), param_tree(model), new)
+
+
+def loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (f32 softmax; float64 for a float64 model)
+    plus z-loss, mean over tokens: ``(loss, {'nll', 'zloss'})``.  Padded
+    vocab columns are masked out by subtracting 1e9; ``batch`` holds
+    'tokens' and 'labels' [B, S] and, for the VLM and audio families,
+    'positions' and 'frames'."""
+    cfg = model.cfg
+    logits = forward(model, batch["tokens"], positions=batch.get("positions"),
+                     frames=batch.get("frames"))
+    logits = logits.to(L._acc(logits.dtype))
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
+        logits = logits - pad.to(logits.dtype) * 1e9
+    logz = torch.logsumexp(logits, dim=-1)
+    # the label's logit: a gather, where the JAX package reduces an
+    # iota-compare (the same value: one logit plus zeros)
+    ll = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    nll = (logz - ll).mean()
+    zloss = 1e-4 * (logz**2).mean()
+    return nll + zloss, {"nll": nll, "zloss": zloss}
+
+
+def loss_and_grads(model: Transformer, batch: dict) -> tuple[tuple, dict]:
+    """The JAX package's ``value_and_grad`` of ``loss_fn``: ((loss, metrics),
+    grads), the gradients a tree in the layout of ``param_tree`` and the
+    parameters' dtype.  The gradient tensors are buffers bound to the
+    model, overwritten by the next call."""
+    view = _view(model)
+    view.zero_grads()
+    with torch.enable_grad():
+        loss, metrics = loss_fn(model, batch)
+        loss.backward()
+    grads = view.collect_grads()
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
+
+
+def train_step_fn(cfg: ArchConfig, optimizer):
+    """A ``(model, opt_state, batch) -> (model, opt_state, metrics)`` step
+    for this arch and optimizer (see ``distributed/optimizer.py``): the
+    loss and its gradients, then the optimizer's update of
+    ``param_tree(model)``, written into the model in place."""
+
+    def step(model: Transformer, opt_state: dict, batch: dict):
+        if model.cfg != cfg:
+            raise ValueError(f"step built for {cfg.name}, model is {model.cfg.name}")
+        (loss, metrics), grads = loss_and_grads(model, batch)
+        new, opt_state = optimizer.update(param_tree(model), grads, opt_state)
+        assign_params(model, new)
+        return model, opt_state, dict(metrics, loss=loss)
+
+    return step
