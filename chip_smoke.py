@@ -216,13 +216,35 @@ JAX or the JAX package.  Phases, each of which asserts:
     trained model, finite; (e) ``launch.train --smoke`` as a subprocess.
     The phase prints its own seconds.
 
-Phases 20, 21, 22 and 23 run after phase 18, before the kernels line (19).
+24. the dry run (``repro_torch.launch.dryrun``: DTensors of fake tensors
+    on a fake process group, no kernel launched): (a) phase 23's cell,
+    granite-3-8b at full width, 4 of 40 layers, bf16, remat, AdamW, B 4 x
+    S 2048, on a (1, 1) mesh, then the same step once on the card: the dry
+    run's FLOPs equal ``FlopCounterMode``'s count of the card's step and
+    its argument bytes the card's parameters, AdamW state and batch,
+    exactly; its peak (argument + temp + output - alias) within 10% of
+    ``max_memory_allocated`` across that step (reset just before it); its
+    roofline terms under a profile of a bf16 ``torch.matmul`` rate (8192^3,
+    CUDA events) and ``calibrate``'s bandwidth probe, ``roofline_fraction``
+    <= 1.05, printed beside phase 23's step time; the same step once more
+    under the dry run's counter on the card's tensors (its peak printed:
+    what the tracker sees of the real step); (b) five production cells at
+    full width on fake tensors, each in its own process, all at once:
+    granite-3-8b train_4k (single and multi), olmoe-1b-7b train_4k,
+    mamba2-370m long_500k and kimi-k2-1t-a32b decode_32k: status ok,
+    collective bytes above 0, argument bytes equal to the local shard
+    bytes of the specs; per-device memory, FLOPs, bytes, collective bytes
+    by kind and the analysis row printed.  The phase prints its own
+    seconds.
+
+Phases 20, 21, 22, 23 and 24 run after phase 18, before the kernels line (19).
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -265,6 +287,15 @@ KIMI_CHECK_EXPERTS = 16  # 384 experts in float64 would not fit the host
 TRAIN_ARCH, TRAIN_FULL_LAYERS, TRAIN_LAYERS = "granite-3-8b", 40, 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_STEPS, TRAIN_MICRO_STEPS, TRAIN_PREEMPT = 8, 3, 3
+# phase 24: the dry run; (b)'s production cells, each its own process
+DRY_CELLS = (
+    ("granite-3-8b", "train_4k", "single"),
+    ("olmoe-1b-7b", "train_4k", "single"),
+    ("mamba2-370m", "long_500k", "single"),
+    ("kimi-k2-1t-a32b", "decode_32k", "single"),
+    ("granite-3-8b", "train_4k", "multi"),
+)
+DRY_PEAK_TOL = 0.10
 
 
 def log(*a):
@@ -2367,6 +2398,227 @@ def lm_training(T, get_arch, build, dev, card, timer) -> dict:
     return out
 
 
+def bf16_matmul_rate(dev) -> float:
+    """FLOP/s of one 8192^3 bf16 ``torch.matmul`` (least of 5 CUDA-event
+    timings after a warm-up)."""
+    import torch
+
+    from repro_torch.roofline import costmodel
+
+    n = 8192
+    a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    ms = costmodel._event_ms(lambda: a @ b)
+    del a, b
+    return 2.0 * n**3 / (ms * 1e-3)
+
+
+def dry_profile(dev, card):
+    """The roofline profile of phase 24: a measured bf16 matmul rate and
+    ``calibrate``'s bandwidth probe; no link (one card)."""
+    import dataclasses
+
+    from repro_torch.roofline import costmodel
+
+    rate, bw = bf16_matmul_rate(dev), costmodel._probe_hbm_bw(dev)
+    log(f"[dryrun] profile: bf16 matmul 8192^3 {rate!r} FLOP/s, streaming {bw!r} B/s "
+        f"(CUDA events) | {card}")
+    return dataclasses.replace(costmodel.PROFILES["h100-sxm"], name="h100-bf16-measured",
+                               peak_flops=rate, hbm_bw=bw, calibrated=True)
+
+
+def dry_vs_card(T, get_arch, dev, card, prof, step_ms) -> dict:
+    """Phase 24 (a): phase 23's cell through the dry run on a (1, 1) mesh,
+    then the same step once on the card (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.configs as C
+    from repro_torch.distributed.optimizer import Schedule, make_optimizer
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline import analysis
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    shape = C.ShapeSpec("train_b4_s2048", "train", TRAIN_SEQ, TRAIN_BATCH)
+    C.SHAPES.setdefault(shape.name, shape)  # the analysis reads the cell's shape by name
+    t0 = time.perf_counter()
+    dryrun.init_fake_world(1)
+    try:
+        res = dryrun.run_step(dryrun.build_step(cfg, shape, make_mesh((1, 1), ("data", "model"))),
+                              1)
+    finally:
+        T.set_mesh(None)
+        dist.destroy_process_group()
+    t_dry = time.perf_counter() - t0
+    mem, cost = res["memory_analysis"], res["cost_analysis"]
+    dry_peak = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    log(f"[dryrun] (a) {cfg.name} {cfg.n_layers} of {TRAIN_FULL_LAYERS} layers, B "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ}, (1, 1) mesh, fake tensors, {t_dry:.1f}s: "
+        f"memory {mem}, cost {cost}, collective total {res['collective_bytes']['total']}")
+
+    # the same step once on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = make_optimizer(cfg.optimizer, Schedule())
+    params = T.param_tree(model)
+    state = opt.init(params)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                              device=dev, dtype=torch.int32) for k in ("tokens", "labels")}
+    arg_bytes = sum(t.numel() * t.element_size()
+                    for t in dryrun._leaves((params, state, batch)))
+    step = T.train_step_fn(cfg, opt)
+
+    def run(mode=None):
+        """One step (under ``mode``, if any): its peak over what was
+        allocated before the model."""
+        nonlocal model, state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with mode if mode is not None else contextlib.nullcontext():
+            model, state, metrics = step(model, state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, loss
+
+    base = torch.cuda.memory_allocated()
+    card_peak, loss = run()  # the step the dry run is held to
+    fc = FlopCounterMode(display=False)
+    fc_peak, _ = run(fc)
+    flops = fc.get_total_flops()
+    counter = dryrun._Counter()  # the dry run's counter on the card's own tensors
+    for t in dryrun._leaves((T.param_tree(model), state, batch, T._view(model).grads)):
+        counter.hold(t)
+    counter_peak, _ = run(counter)
+    again, _ = run()
+    log(f"[dryrun] (a) card step: loss {loss!r}; arguments {arg_bytes} B (dry run "
+        f"{mem['argument_size_in_bytes']}); allocated before the model {before} B, "
+        f"before the step {base} B; step peak over what was allocated before the model "
+        f"{card_peak} B (dry run peak {dry_peak} B, {dry_peak / card_peak - 1:+.4f}); the "
+        f"next steps: under FlopCounterMode {flops} FLOPs (dry run {cost['flops']!r}), "
+        f"peak {fc_peak} B; under the dry run's counter: its tracked peak {counter.peak} "
+        f"B, FLOPs {counter.flops}, allocator peak {counter_peak} B; plain again, peak "
+        f"{again} B | {card}")
+    del model, state, batch, params, counter, fc
+    torch.cuda.empty_cache()
+
+    cell = {"arch": TRAIN_ARCH, "shape": shape.name, "mesh": "1x1", "status": "ok",
+            "n_chips": 1, "active_params": cfg.active_param_count(), **res}
+    row = analysis.analyze_cell(cell, prof)
+    log(f"[dryrun] (a) roofline under {prof.name}: compute_s {row.compute_s!r}, memory_s "
+        f"{row.memory_s!r} (fused bound {row.memory_min_s!r}), collective_s "
+        f"{row.collective_s!r}, dominant {row.dominant}, roofline_fraction "
+        f"{row.roofline_fraction!r}, useful_ratio {row.useful_ratio!r}; measured step "
+        f"{step_ms!r} ms (phase 23, host clock) | {card}")
+    assert cost["flops"] == flops, (cost["flops"], flops)
+    assert mem["argument_size_in_bytes"] == arg_bytes, (mem, arg_bytes)
+    assert abs(dry_peak - card_peak) <= DRY_PEAK_TOL * card_peak, (dry_peak, card_peak)
+    assert 0 < row.roofline_fraction <= 1.05, row
+    return {"flops": flops, "dry_peak": dry_peak, "card_peak": card_peak,
+            "compute_s": row.compute_s, "memory_s": row.memory_s, "dominant": row.dominant,
+            "fraction": row.roofline_fraction}
+
+
+def dry_spec_bytes(arch: str, shape_name: str, mesh_kind: str) -> int:
+    """Phase 24 (b): a cell's argument bytes from the specs alone: the local
+    shard bytes of the parameters (and the optimizer state, or the decode
+    cache) and the batch on the production mesh."""
+    import repro_torch.configs as C
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.optimizer import Schedule, make_optimizer
+    from repro_torch.distributed.train_loop import _opt_specs
+    from repro_torch.launch import dryrun
+
+    class Named:
+        axis_names = ("pod", "data", "model") if mesh_kind == "multi" else ("data", "model")
+        shape = dict(zip(axis_names, (2, 16, 16) if mesh_kind == "multi" else (16, 16)))
+
+    m = Named()
+    cfg, shape = C.get_arch(arch), C.SHAPES[shape_name]
+    p = dryrun._param_shapes(cfg)
+    total = sharding.local_bytes(
+        p, sharding.param_specs(p, m, serve=dryrun.serve_replicated(cfg, shape, m)), m)
+    inputs = C.input_specs(cfg, shape)
+    total += sharding.local_bytes(inputs, sharding.batch_specs(inputs, m), m)
+    if shape.kind == "train":
+        o = make_optimizer(cfg.optimizer, Schedule()).init(p)
+        total += sharding.local_bytes(o, _opt_specs(o, p, m), m)
+    elif shape.kind == "decode":
+        c = dryrun._cache_shapes(cfg, shape.global_batch, shape.seq_len)
+        total += sharding.local_bytes(c, sharding.cache_specs(c, m), m)
+    return total
+
+
+def dry_cells_start(logs: pathlib.Path) -> list:
+    """Phase 24 (b): every cell's ``python -m repro_torch.launch.dryrun``,
+    started at once (each a fresh process and process group), its output
+    in a file under ``logs``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for cell in DRY_CELLS:
+        out = open(logs / ("__".join(cell) + ".log"), "w")
+        procs.append((cell, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+             cell[1], "--mesh", cell[2]], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def dry_cells_check(procs, prof, card) -> None:
+    """Phase 24 (b): each cell's result read back and checked."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    for (arch, shape, mesh), out, proc in procs:
+        proc.wait(timeout=900)
+        out.close()
+        assert proc.returncode == 0, (arch, shape, mesh, open(out.name).read()[-4000:])
+        with open(ROOT / dryrun.RESULTS_DIR / f"{arch}__{shape}__{mesh}.json") as f:
+            cell = json.load(f)
+        mem, coll = cell["memory_analysis"], cell["collective_bytes"]
+        want = dry_spec_bytes(arch, shape, mesh)
+        row = analysis.analyze_cell(cell, prof)
+        log(f"[dryrun] (b) {arch} x {shape} x {mesh} ({cell['n_chips']} ranks, trace "
+            f"{cell['trace_s']}s): status {cell['status']}; per device: memory {mem} (peak "
+            f"{row.peak_mem_gb!r} GB); flops {cell['cost_analysis']['flops']!r}, bytes "
+            f"accessed {cell['cost_analysis']['bytes accessed']!r}; collective bytes "
+            f"{ {k: coll[k] for k in ('all-gather', 'all-reduce', 'reduce-scatter', 'all-to-all', 'collective-permute', 'total')} } "
+            f"counts {coll['counts']}; argument bytes from the specs {want}")
+        log(f"[dryrun] (b)   row under {prof.name}: compute_s {row.compute_s!r}, memory_s "
+            f"{row.memory_s!r} / fused {row.memory_min_s!r}, collective_s "
+            f"{row.collective_s!r} ({row.note}), dominant {row.dominant}, useful_ratio "
+            f"{row.useful_ratio!r}, roofline_fraction {row.roofline_fraction!r} | {card}")
+        assert cell["status"] == "ok" and coll["total"] > 0, cell["status"]
+        assert mem["argument_size_in_bytes"] == want, (arch, shape, mesh, mem, want)
+
+
+def dry_run(T, get_arch, dev, card, step_ms) -> dict:
+    """Phase 24: the dry run (see the module docstring)."""
+    t_phase = time.perf_counter()
+    logs = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    procs = dry_cells_start(logs)
+    try:
+        prof = dry_profile(dev, card)
+        out = dry_vs_card(T, get_arch, dev, card, prof, step_ms)
+        dry_cells_check(procs, prof, card)
+    finally:
+        for _, f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    log(f"[dryrun] phase 24 in {time.perf_counter() - t_phase:.1f} s | {card}")
+    return out
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -3028,7 +3280,12 @@ def main() -> int:
     lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)
 
     # 23 — LM training on the card
-    lm_training(T, get_arch, build, dev, card, timer)
+    train = lm_training(T, get_arch, build, dev, card, timer)
+
+    # 24 — the dry run, against a real step on the card and at production scale
+    launches0 = {k.name: k.launches for k in build.KERNELS}
+    dry_run(T, get_arch, dev, card, train["step_ms"])
+    assert {k.name: k.launches for k in build.KERNELS} == launches0  # no kernel on this path
 
     # 19 — the kernels line; launches from each kernel's own path
     wsr = rows["WordSynonyms"]

@@ -3,10 +3,16 @@
 
 Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced CPU-testable config), as in the JAX package, for
-all ten of its ids.  The dry-run's shape table and input specs are not
-ported.
+all ten of its ids.  ``SHAPES`` is the dry run's table of input shapes
+and ``input_specs`` builds the ``meta`` stand-ins each (arch x shape)
+cell runs against (``launch/dryrun.py``).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
 
 from repro_torch.configs import (
     deepseek_coder_33b,
@@ -44,3 +50,73 @@ def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = REGISTRY[arch_id]
     return mod.smoke() if smoke else mod.full()
+
+
+# --------------------------------------------------------------------------
+# shapes (assigned per-arch input-shape set)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+# long_500k needs sub-quadratic attention: run only for SSM/hybrid (their
+# attention state is O(1) / sharded-KV); skip for the 8 pure full-attention
+# archs.
+_LONG_OK_FAMILIES = ("ssm", "hybrid")
+
+
+def applicable(cfg: ArchConfig, shape: str) -> bool:
+    if shape == "long_500k":
+        return cfg.family in _LONG_OK_FAMILIES
+    return True
+
+
+def skip_reason(cfg: ArchConfig, shape: str) -> Optional[str]:
+    if applicable(cfg, shape):
+        return None
+    return (
+        f"{cfg.name} is pure full-attention; long_500k (seq 524288) requires "
+        "sub-quadratic attention (run for ssm/hybrid only)"
+    )
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """``meta`` stand-ins for every model input of this cell, in the JAX
+    package's dtypes (nothing is allocated).
+
+    train:   {'tokens','labels'} [B, S]  (+ 'frames' for audio,
+             + 'positions' [3, B, S] for M-RoPE VLM)
+    prefill: {'tokens'} [B, S] (+ 'frames')
+    decode:  {'tokens'} [B, 1] (the cache comes from ``init_cache``).
+    """
+    B, S = shape.global_batch, shape.seq_len
+
+    def empty(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": empty(B, S), "labels": empty(B, S)}
+        if cfg.family == "audio":
+            specs["frames"] = empty(B, cfg.enc_seq, cfg.d_model, dtype=torch.bfloat16)
+        if cfg.mrope:
+            specs["positions"] = empty(3, B, S)
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": empty(B, S)}
+        if cfg.family == "audio":
+            specs["frames"] = empty(B, cfg.enc_seq, cfg.d_model, dtype=torch.bfloat16)
+        return specs
+    if shape.kind == "decode":
+        return {"tokens": empty(B, 1)}
+    raise ValueError(shape.kind)

@@ -13,9 +13,11 @@ wires together:
   * deterministic data (restart replays the exact batch sequence).
 
 The JAX package jits the step with in/out shardings over a device mesh and
-donates the parameter and optimizer buffers; one card has no mesh, and the
-port updates the model's own storage in place instead of donating.  The
-``Trainer`` takes a ``device`` where the JAX package takes a ``mesh``.
+donates the parameter and optimizer buffers; the ``Trainer`` runs on one
+card, takes a ``device`` where the JAX package takes a ``mesh``, and
+updates the model's own storage in place instead of donating.  The
+optimizer state's specs on a mesh are ``_opt_specs``, which the dry run
+(``launch/dryrun.py``) lays its sharded step out with.
 """
 from __future__ import annotations
 
@@ -164,3 +166,25 @@ class Trainer:
         tree, step = self.ckpt.restore(like, device=self.device)
         T.assign_params(model, tree["params"])
         return model, tree["opt"], step
+
+
+def _opt_specs(o_tree, p_tree, mesh):
+    """Optimizer-state specs (``distributed/sharding.py``): a leaf under
+    'm'/'v'/'vr'/'vc'/'ef' takes its parameter's rule at its own ndim, a
+    scalar ('step') replicates, as in the JAX package.  Adafactor's
+    factored 'vr'/'vc' leaves keep that quirk of the reference: the rule
+    of a parameter of one more dimension, truncated, which need not fit
+    their shape (``sharding.local_shape`` says where it does not
+    divide)."""
+    from repro_torch.distributed import sharding
+
+    fsdp = sharding.dp_axes(mesh)
+
+    def spec(names, leaf):
+        inner = [n for n in names if n not in ("m", "v", "vr", "vc", "ef")]
+        nd = len(leaf.shape) if hasattr(leaf, "shape") else 0
+        if not inner or nd == 0:
+            return ()
+        return sharding._leaf_spec(inner, nd, fsdp)
+
+    return sharding._map_with_path(spec, o_tree)

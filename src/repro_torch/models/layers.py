@@ -19,6 +19,15 @@ CPU tensors.  Under autograd they run ``chunked_attention`` on any device,
 the function the JAX package differentiates (``_attend`` decides, in one
 place).  Decode self-attention over the cache is plain PyTorch on either
 device, as the JAX package leaves it to XLA outside any kernel.
+
+On ``DTensor`` weights (a device mesh, ``transformer.set_mesh``) two
+places redistribute where DTensor cannot follow GSPMD: a projection
+whose head count does not divide the mesh dimension its columns are
+sharded over is replicated there before the head reshape
+(``_split_heads``), and the loss's reductions over the vocab run as
+partial sums (``gather_last``, ``logsumexp_last``); every weight is
+gathered over the dp axes where a product uses it (``gather_weight``).
+None of it runs on plain tensors.
 """
 from __future__ import annotations
 
@@ -96,8 +105,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     assert sum(sections) == d // 2, (sections, d)
     ct = _acc(x.dtype)
     freqs = rope_freqs(d, theta, x.device).to(ct)  # [d/2]
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)
     ang_all = positions.to(ct)[..., None] * freqs  # [3, B, S, d/2]
     pair = torch.arange(d // 2, device=x.device)
     ang = ang_all.permute(1, 2, 3, 0)[:, :, pair, sec_id]  # [B, S, d/2]
@@ -138,8 +147,117 @@ def init_attention(generator: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _replicate_uneven(t, dim: int, n: int):
+    """A DTensor with dimension ``dim`` (n groups of columns) sharded over
+    a mesh dimension whose size does not divide ``n``, replicated on that
+    mesh dimension (GSPMD's all-gather; DTensor cannot unflatten an
+    uneven shard)."""
+    from torch.distributed.tensor import Replicate
+
+    dim = dim % t.ndim
+    mesh = t.device_mesh
+    want = tuple(Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
+                 for i, p in enumerate(t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+
+def gather_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a product uses it: on a DTensor, replicated over every
+    mesh dimension but ``model`` (the FSDP all-gather GSPMD inserts; its
+    backward reduce-scatters the gradient), so that the product keeps the
+    activations' batch sharding and the weight's tensor-parallel one.
+    Plain tensors pass through."""
+    if not _is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    want = tuple(p if name == "model" else Replicate()
+                 for name, p in zip(mesh.mesh_dim_names, w.placements))
+    return w if want == tuple(w.placements) else w.redistribute(mesh, want)
+
+
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output summed over the shards it is
+    partial on (GSPMD's all-reduce of the output of a product over a
+    sharded contraction); plain tensors pass through."""
+    if not _is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+    return t.redistribute(t.device_mesh, want)
+
+
+def _split_heads(t: torch.Tensor, B: int, S: int, H: int, dh: int) -> torch.Tensor:
+    """[B, S, H * dh] -> [B, S, H, dh]; a DTensor first has its columns
+    replicated wherever H heads do not divide their shards."""
+    if _is_dtensor(t):
+        t = _replicate_uneven(t, -1, H)
+    return t.reshape(B, S, H, dh)
+
+
+def _sharded_last(x) -> bool:
+    """True for a DTensor whose last dim is sharded over the mesh."""
+    return _is_dtensor(x) and any(p.is_shard(x.ndim - 1) for p in x.placements)
+
+
+def gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` per position (``torch.gather`` over the last dim).
+    On a DTensor whose last dim is sharded, the JAX package's masked
+    reduction instead (an iota compare, summed: the same value, one entry
+    plus zeros), which reduces locally and sums a partial over the
+    shards, where a gather would all-gather ``x``."""
+    if not _sharded_last(x):
+        return torch.gather(x, -1, idx[..., None].long())[..., 0]
+    iota = torch.arange(x.shape[-1], device=x.device)
+    return reduce_partial(torch.sum(torch.where(iota == idx[..., None], x, 0.0), dim=-1))
+
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim; on a DTensor whose last dim is
+    sharded, as max, exp and sum, each of which DTensor reduces over the
+    shards as a partial."""
+    if not _sharded_last(x):
+        return torch.logsumexp(x, dim=-1)
+    m = reduce_partial(torch.amax(x, dim=-1, keepdim=True).detach())
+    return torch.log(reduce_partial(torch.sum(torch.exp(x - m), dim=-1))) + m[..., 0]
+
+
+def _kv_for_heads(q, k, v):
+    """k, v for attention with q.  On DTensors whose q heads are sharded
+    over a mesh dimension that the kv heads do not divide, k and v are
+    repeated to q's heads and laid out as q (GQA computed as MHA: the same
+    products, each device its own heads), where GSPMD would tile the
+    (kv head, group) pair over one axis, which DTensor cannot express."""
+    if not _is_dtensor(q) or k.shape[2] == q.shape[2]:
+        return k, v
+    mesh, Hq, Hkv = q.device_mesh, q.shape[2], k.shape[2]
+    if not any(p.is_shard(2) and Hkv % mesh.size(i) for i, p in enumerate(q.placements)):
+        return k, v
+
+    def repeat(t):
+        B, S, _, d = t.shape
+        t = _replicate_uneven(t, 2, Hkv)
+        t = t[:, :, :, None, :].expand(B, S, Hkv, Hq // Hkv, d).reshape(B, S, Hq, d)
+        return t.redistribute(mesh, q.placements)
+
+    return repeat(k), repeat(v)
+
+
 def _merge_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """[B, S, Hq, d] -> [B, S, Hkv, G, d]."""
+    """[B, S, Hq, d] -> [B, S, Hkv, G, d] (a DTensor's heads replicated
+    first where Hkv does not divide their shards)."""
+    if _is_dtensor(q):
+        q = _replicate_uneven(q, 2, n_kv)
     B, S, Hq, d = q.shape
     return q.reshape(B, S, n_kv, Hq // n_kv, d)
 
@@ -215,6 +333,8 @@ def _attend(q, k, v, causal: bool, cfg: ArchConfig) -> torch.Tensor:
     has no backward, and on the CPU; the flash kernel (f32 scores) on CUDA
     tensors otherwise.  The one place the training and serving paths of
     attention part."""
+    if _is_dtensor(q):
+        return _attend_local(q, k, v, causal, cfg)
     training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if training or q.device.type == "cpu":
         return flash_lib.flash_attention_plain(
@@ -225,6 +345,95 @@ def _attend(q, k, v, causal: bool, cfg: ArchConfig) -> torch.Tensor:
             "the flash kernel computes f32 scores; bf16 scores "
             "(attn_bf16_scores) run on the CPU only")
     return flash_lib.flash_attention(q, k, v, causal)
+
+
+def _attend_local(q, k, v, causal: bool, cfg: ArchConfig):
+    """``_attend`` on DTensors: each device attends its own batch rows and
+    heads (a ``local_map`` in q's layout, k and v brought to it), since
+    DTensor cannot follow the einsums' merged (batch, head) dims."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in q.placements)
+    return local_map(lambda a, b, c: _attend(a, b, c, causal, cfg), out_placements=list(pl),
+                     in_placements=(pl, pl, pl), device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _seq_shard(t) -> tuple:
+    """(offset, length) of this device's slice of a DTensor cache's
+    sequence dim (dim 1)."""
+    n, off = t.shape[1], 0
+    coord = t.device_mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if p.is_shard(1):
+            n //= t.device_mesh.size(i)
+            off = off * t.device_mesh.size(i) + coord[i]
+    return off * n, n
+
+
+def _cache_write(cache, new, idx: int) -> None:
+    """cache[:, idx : idx + S] = new, in place.  On a DTensor cache (its
+    sequence sharded over the mesh) each device writes the positions of
+    the step that fall in its own slice, from ``new`` laid out as the
+    cache with the sequence replicated."""
+    S = new.shape[1]
+    if not _is_dtensor(cache):
+        cache[:, idx : idx + S] = new
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    pl = tuple(Replicate() if p.is_shard(1) else p for p in cache.placements)
+    new = new.redistribute(mesh, pl).to_local()
+    local = cache.to_local()
+    off, n = _seq_shard(cache)
+    a, b = max(idx, off), min(idx + S, off + n)
+    if a < b:
+        local[:, a - off : b - off] = new[:, a - idx : b - idx]
+
+
+def _decode_attend_local(q, ck, cv, idx: int):
+    """Decode attention of q [B, S, Hq, d] over a DTensor cache whose
+    sequence is sharded over the mesh (the JAX package's SP cache rule):
+    each device scores its own slice of positions, and the softmax's max,
+    its sum and the weighted values are reduced over the sequence's mesh
+    dims (flash-decode; GSPMD's partial reductions), f32 throughout."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ck.device_mesh
+    seq_dims = [i for i, p in enumerate(ck.placements) if p.is_shard(1)]
+    names = mesh.mesh_dim_names
+    groups = [mesh.get_group(names[i]) for i in seq_dims]
+    q_pl = tuple(Replicate() if p.is_shard(1) else p for p in ck.placements)
+    B, S, Hq, dh = q.shape
+    Hkv = ck.shape[2]
+    off, _ = _seq_shard(ck)
+
+    def attend(ql, kl, vl):
+        ct = _acc(ql.dtype)
+        n_loc = kl.shape[1]
+        qg = ql.reshape(ql.shape[0], S, Hkv, Hq // Hkv, dh).to(ct)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kl.to(ct))
+        s = s / _f32_scalar(np.sqrt(np.float32(dh)))
+        kv_pos = off + torch.arange(n_loc, device=ql.device)
+        q_pos = idx + torch.arange(S, device=ql.device)
+        valid = (kv_pos[None, :] <= q_pos[:, None])[None, :, None, None, :]
+        s = torch.where(valid, s, -math.inf)
+        m = s.amax(dim=-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        l, o = p.sum(dim=-1), torch.einsum("bqhgk,bkhd->bqhgd", p, vl.to(ct))
+        for g in groups:
+            l, o = funcol.all_reduce(l, "sum", g), funcol.all_reduce(o, "sum", g)
+        return (o / l[..., None]).to(ql.dtype).reshape(ql.shape)
+
+    return local_map(attend, out_placements=list(q_pl),
+                     in_placements=(q_pl, tuple(ck.placements), tuple(cv.placements)),
+                     device_mesh=mesh, redistribute_inputs=True)(q, ck, cv)
 
 
 def attention(
@@ -254,10 +463,11 @@ def attention(
     """
     B, S, D = x.shape
     dh, Hq, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ params["wq"]).reshape(B, S, Hq, dh)
+    params = {k: gather_weight(w) for k, w in params.items()}
+    q = _split_heads(x @ params["wq"], B, S, Hq, dh)
     if cross_kv is None:
-        k = (x @ params["wk"]).reshape(B, S, Hkv, dh)
-        v = (x @ params["wv"]).reshape(B, S, Hkv, dh)
+        k = _split_heads(x @ params["wk"], B, S, Hkv, dh)
+        v = _split_heads(x @ params["wv"], B, S, Hkv, dh)
     else:
         k, v = cross_kv
 
@@ -279,13 +489,15 @@ def attention(
         # serving: write this step's k/v into the cache at index 'len'
         idx = kv_cache["len"]
         ck, cv = kv_cache["k"], kv_cache["v"]
-        ck[:, idx : idx + S] = k
-        cv[:, idx : idx + S] = v
+        _cache_write(ck, k, idx)
+        _cache_write(cv, v, idx)
         new_cache = {"k": ck, "v": cv, "len": idx + S}
         if S > 1:
             # prefill (assumes an empty cache, idx == 0): causal flash
             # attention over the prompt only
-            o = _attend(q, k, v, True, cfg)
+            o = _attend(q, *_kv_for_heads(q, k, v), True, cfg)
+        elif _is_dtensor(ck):
+            o = _decode_attend_local(q, ck, cv, idx)
         else:
             # decode: attend to the cache up to 'len' + S, keeping
             # causality within the step; scores in f32
@@ -301,9 +513,9 @@ def attention(
             p = torch.softmax(s, dim=-1).to(cv.dtype)
             o = torch.einsum("bqhgk,bkhd->bqhgd", p, cv[:, :n])
     else:
-        o = _attend(q, k, v, causal and cross_kv is None, cfg)
+        o = _attend(q, *_kv_for_heads(q, k, v), causal and cross_kv is None, cfg)
     o = o.reshape(B, S, Hq * dh)
-    return o @ params["wo"], new_cache
+    return reduce_partial(o @ params["wo"]), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -321,8 +533,9 @@ def init_mlp(generator: torch.Generator, cfg: ArchConfig,
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    params = {k: gather_weight(w) for k, w in params.items()}
     g = torch.nn.functional.silu((x @ params["w_gate"]).to(_acc(x.dtype))).to(x.dtype)
-    return (g * (x @ params["w_up"])) @ params["w_down"]
+    return reduce_partial((g * (x @ params["w_up"])) @ params["w_down"])
 
 
 # --------------------------------------------------------------------------

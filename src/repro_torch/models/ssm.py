@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _acc, _dtype, dense_init, rmsnorm
+from repro_torch.models.layers import _acc, _dtype, _is_dtensor, dense_init, rmsnorm
 
 CONV_K = 4  # mamba2 depthwise conv width
 
@@ -184,6 +184,8 @@ def ssm_block_apply(
     cache (decode): {'conv': [B, K-1, Di+2N], 'S': [B, H, N, dh]}; the new
     states are returned, not written into it.
     """
+    if _is_dtensor(h):
+        return _ssm_block_local(params, h, cfg, cache)
     Di, N, H, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, L, D = h.shape
     ct = _acc(h.dtype)
@@ -216,3 +218,40 @@ def ssm_block_apply(
     y = y * torch.nn.functional.silu(z.to(ct)).to(h.dtype)
     y = rmsnorm(y, params["norm"])
     return y @ params["out_proj"], new_cache
+
+
+def _ssm_block_local(params: dict, h, cfg: ArchConfig, cache: Optional[dict]):
+    """``ssm_block_apply`` on DTensors: each device runs the whole block on
+    its own batch rows (a ``local_map``), the block's weights and the
+    cache's states gathered whole.  DTensor cannot follow the block's
+    split of one sharded projection into five, nor the SSD's merged
+    dims, so the block is data-parallel only: its products are not
+    tensor-parallel over ``model``, as GSPMD would make them."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    hp = tuple(p if p.is_shard(0) else Replicate() for p in h.placements)
+    rep = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if p.is_shard(0) else Replicate() for p in hp)
+    names = sorted(params)
+    ws = [params[k] for k in names]
+    if cache is None:
+        def run(hl, *wl):
+            return ssm_block_apply(dict(zip(names, wl)), hl, cfg)[0]
+
+        y = local_map(run, out_placements=list(hp), in_placements=(hp,) + (rep,) * len(ws),
+                      in_grad_placements=(hp,) + (grad,) * len(ws), device_mesh=mesh,
+                      redistribute_inputs=True)(h, *ws)
+        return y, None
+
+    def run_cached(hl, conv, S, *wl):
+        y, nc = ssm_block_apply(dict(zip(names, wl)), hl, cfg,
+                                cache={"conv": conv, "S": S})
+        return y, nc["conv"], nc["S"]
+
+    y, conv, S = local_map(run_cached, out_placements=(list(hp),) * 3,
+                           in_placements=(hp, hp, hp) + (rep,) * len(ws),
+                           device_mesh=mesh, redistribute_inputs=True)(
+        h, cache["conv"], cache["S"], *ws)
+    return y, {"conv": conv, "S": S}

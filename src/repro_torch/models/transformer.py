@@ -24,10 +24,15 @@ backward pass (``torch.utils.checkpoint``) where the JAX package
 checkpoints it.  The caches are updated in place (their 'len' is a
 Python int) where the JAX package returns new ones.
 
-The JAX package's mesh hooks (``set_mesh``, ``_constrain_tokens``) pin
-activation sharding on a device mesh and route the MoE FFN through its
-expert-parallel ``shard_map``; one card has no mesh, so they have no
-counterpart and every expert runs on this device.
+The mesh hooks: ``set_mesh(mesh)`` names a ``DeviceMesh`` whose axes are
+the JAX package's (pod, data, model); the weights are then ``DTensor``s
+laid out by ``distributed/sharding.py`` (the dry run builds them,
+``launch/dryrun.py``), ``_constrain_tokens`` redistributes the tokens to
+batch over the dp axes and replicated elsewhere where the JAX package
+pins them with ``with_sharding_constraint``, and the MoE FFN takes its
+expert-parallel branch (``moe.moe_apply``).  ``mesh_scope()`` is the
+context a step on DTensor weights runs in.  Without a mesh every hook is
+the identity.
 """
 from __future__ import annotations
 
@@ -271,10 +276,75 @@ def _dense_block(blk: Block, h, positions, causal=True, cross=None, kv_cache=Non
         c, _ = xblk.attn(xblk.norm(h), positions, causal=False, cross_kv=(xk, xv))
         h = h + c
     if cfg.family == "moe":
-        h = h + moe_lib.moe_apply(blk.norm2(h), blk.moe.params(), cfg)
+        h = h + moe_lib.moe_apply(blk.norm2(h), blk.moe.params(), cfg, mesh=_MESH[0])
     else:
         h = h + blk.mlp(blk.norm2(h))
     return h, new_cache
+
+
+# The device mesh of the weights' DTensors, set by the dry run through
+# ``set_mesh`` (None: plain tensors, every hook the identity).
+_MESH: list = [None]
+
+
+def set_mesh(mesh) -> None:
+    _MESH[0] = mesh
+
+
+def _constrain_tokens(h):
+    """Pin the activations' layout: batch over (pod, data), or the largest
+    prefix of them that divides it, replicated on every other mesh
+    dimension, in the forward pass and for the gradient in the backward
+    pass, as the JAX package's ``with_sharding_constraint`` pins both
+    (without it the embedding table's layout would leave the batch
+    replicated, every device doing the dp axes' work; DTensor's
+    elementwise rules would let a replicated gradient replicate the
+    activations' gradients).  The identity without a mesh or on a plain
+    tensor."""
+    mesh = _MESH[0]
+    if mesh is None:
+        return h
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import sharding
+
+    if not isinstance(h, DTensor):
+        return h
+    axes = sharding.fit_axes(h.shape[0], mesh, sharding.dp_axes(mesh)) or ()
+    want = tuple(Shard(0) if a in axes else Replicate()
+                 for a in sharding.axis_names(mesh))
+    return _Constrain.apply(h, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, and its gradient too."""
+
+    @staticmethod
+    def forward(ctx, h, want):
+        ctx.want = want
+        return h if tuple(h.placements) == want else h.redistribute(h.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
+
+
+def mesh_scope():
+    """The context a step on DTensor weights runs in, forward and backward:
+    tensors the model makes itself (positions, RoPE tables, masks, the
+    loss's vocab mask, SSM conv padding) enter each op as replicated
+    DTensors.  It is ``torch.distributed.tensor.experimental.
+    implicit_replication``, an experimental API of PyTorch.  Without a
+    mesh, a null context."""
+    import contextlib
+
+    if _MESH[0] is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def _ssm_layer(blk: Block, h, cache=None):
@@ -307,7 +377,7 @@ def _hybrid_layers(model: Transformer, h, positions, cache=None):
     for app in range(n_apps):
         h = _remat(cfg, lambda hh, a=app: _superblock(model, hh, positions, a, cache), h)
     for i in range(n_apps * cfg.attn_every, cfg.n_layers):
-        h = _ssm_step(model.blocks[i], h, cache, i)
+        h = _constrain_tokens(_ssm_step(model.blocks[i], h, cache, i))
     return h
 
 
@@ -316,10 +386,10 @@ def _superblock(model: Transformer, h, positions, app: int, cache=None):
     the shared block with that application's KV cache, if any."""
     per = model.cfg.attn_every
     for i in range(app * per, (app + 1) * per):
-        h = _ssm_step(model.blocks[i], h, cache, i)
+        h = _constrain_tokens(_ssm_step(model.blocks[i], h, cache, i))
     kv = None if cache is None else {
         "k": cache["k"][app], "v": cache["v"][app], "len": cache["len"]}
-    return _shared_attn(model, h, positions, app, kv_cache=kv)[0]
+    return _constrain_tokens(_shared_attn(model, h, positions, app, kv_cache=kv)[0])
 
 
 def _ssm_step(blk: Block, h, cache, i: int):
@@ -351,7 +421,8 @@ def _encode_audio(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     pos = _positions(0, B, T_enc, frames.device)
     h = frames
     for blk in model.enc_blocks:
-        h = _remat(model.cfg, lambda hh, b=blk: _dense_block(b, hh, pos, causal=False)[0], h)
+        h = _remat(model.cfg, lambda hh, b=blk: _constrain_tokens(
+            _dense_block(b, hh, pos, causal=False)[0]), h)
     return model.enc_norm(h)
 
 
@@ -361,8 +432,19 @@ def _cross_kv(model: Transformer, enc: torch.Tensor, i: int):
     cfg = model.cfg
     B, T_enc, _ = enc.shape
     p = model.cross_blocks[i].attn.params()
-    shape = (B, T_enc, cfg.n_kv_heads, cfg.d_head)
-    return (enc @ p["wk"]).reshape(shape), (enc @ p["wv"]).reshape(shape)
+    H, dh = cfg.n_kv_heads, cfg.d_head
+    return (L._split_heads(enc @ L.gather_weight(p["wk"]), B, T_enc, H, dh),
+            L._split_heads(enc @ L.gather_weight(p["wv"]), B, T_enc, H, dh))
+
+
+def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the embedding; a DTensor table whose vocab is
+    sharded over ``model`` as ``embedding``, which DTensor looks up per
+    shard and sums (a masked partial)."""
+    table = L.gather_weight(model.embed)
+    if not L._is_dtensor(table) or not any(p.is_shard(0) for p in table.placements):
+        return table[tokens]
+    return torch.nn.functional.embedding(tokens, table)
 
 
 def _positions(start: int, batch: int, seq: int, device, mrope: bool = False) -> torch.Tensor:
@@ -381,15 +463,16 @@ def forward(model: Transformer, tokens: torch.Tensor,
     the backward pass, where the JAX package checkpoints it."""
     cfg = model.cfg
     B, S = tokens.shape
-    h = model.embed[tokens]  # gather
+    h = _constrain_tokens(_embed(model, tokens))  # gather
     if positions is None:
         positions = _positions(0, B, S, tokens.device, cfg.mrope)
     if cfg.family in ("dense", "vlm", "moe"):
         for blk in model.blocks:
-            h = _remat(cfg, lambda hh, b=blk: _dense_block(b, hh, positions)[0], h)
+            h = _remat(cfg, lambda hh, b=blk: _constrain_tokens(
+                _dense_block(b, hh, positions)[0]), h)
     elif cfg.family == "ssm":
         for blk in model.blocks:
-            h = _remat(cfg, lambda hh, b=blk: _ssm_layer(b, hh)[0], h)
+            h = _remat(cfg, lambda hh, b=blk: _constrain_tokens(_ssm_layer(b, hh)[0]), h)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, positions)
     elif cfg.family == "audio":
@@ -399,14 +482,15 @@ def forward(model: Transformer, tokens: torch.Tensor,
 
         def layer(hh, i):
             cross = (model.cross_blocks[i], *_cross_kv(model, enc, i))
-            return _dense_block(model.blocks[i], hh, positions, cross=cross)[0]
+            return _constrain_tokens(
+                _dense_block(model.blocks[i], hh, positions, cross=cross)[0])
 
         for i in range(cfg.n_layers):
             h = _remat(cfg, lambda hh, i=i: layer(hh, i), h)
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     h = model.final_norm(h)
-    return h @ model.lm_head
+    return h @ L.gather_weight(model.lm_head)
 
 
 # --------------------------------------------------------------------------
@@ -457,7 +541,7 @@ def decode_step(model: Transformer, cache: dict,
     """
     cfg = model.cfg
     B, S = tokens.shape
-    h = model.embed[tokens]
+    h = _constrain_tokens(_embed(model, tokens))
     idx = cache["len"]
     pos = _positions(idx, B, S, tokens.device, cfg.mrope)
 
@@ -480,21 +564,24 @@ def decode_step(model: Transformer, cache: dict,
         raise ValueError(cfg.family)
     new_cache = dict(cache, len=idx + S)
     h = model.final_norm(h)
-    return new_cache, h @ model.lm_head
+    return new_cache, h @ L.gather_weight(model.lm_head)
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
-            frames: Optional[torch.Tensor] = None) -> tuple[dict, torch.Tensor]:
+            frames: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None) -> tuple[dict, torch.Tensor]:
     """Prefill a prompt and build decode caches: the decode path over the
     whole prompt at once (an S-token step), as the JAX package does; the
     audio family first encodes ``frames`` and caches each layer's cross
-    K, V.  Returns (cache, logits [B, S, V_padded] at every prompt
-    position)."""
+    K, V.  ``cache`` is an empty cache of ``init_cache``'s layout to fill
+    (the dry run passes its sharded one); by default one is made.
+    Returns (cache, logits [B, S, V_padded] at every prompt position)."""
     B, _ = tokens.shape
     enc_len = frames.shape[1] if frames is not None else 0
-    # the caches take the weights' type (float64 for a model cast with .double())
-    cache = init_cache(model.cfg, B, max_len, device=tokens.device, enc_len=enc_len,
-                       dtype=model.embed.dtype)
+    if cache is None:
+        # the caches take the weights' type (float64 for a model cast with .double())
+        cache = init_cache(model.cfg, B, max_len, device=tokens.device, enc_len=enc_len,
+                           dtype=model.embed.dtype)
     if model.cfg.family == "audio":
         enc = _encode_audio(model, frames)
         for i in range(model.cfg.n_layers):
@@ -612,10 +699,10 @@ def loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
     if cfg.vocab_padded != cfg.vocab_size:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
         logits = logits - pad.to(logits.dtype) * 1e9
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _constrain_tokens(L.logsumexp_last(logits))
     # the label's logit: a gather, where the JAX package reduces an
     # iota-compare (the same value: one logit plus zeros)
-    ll = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    ll = _constrain_tokens(L.gather_last(logits, batch["labels"]))
     nll = (logz - ll).mean()
     zloss = 1e-4 * (logz**2).mean()
     return nll + zloss, {"nll": nll, "zloss": zloss}

@@ -133,7 +133,10 @@ def test_import_leaves_jax_and_repro_out():
         "repro_torch.clustering.dtcr, repro_torch.roofline.costmodel, "
         "repro_torch.serve, "
         "repro_torch.testing, repro_torch.distributed.checkpoint, "
-        "repro_torch.launch.serve_tnn\n"
+        "repro_torch.launch.serve_tnn, repro_torch.distributed.sharding, "
+        "repro_torch.distributed.train_loop, repro_torch.launch.mesh, "
+        "repro_torch.launch.hlo, repro_torch.launch.dryrun, "
+        "repro_torch.launch.hillclimb, repro_torch.roofline.analysis\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
