@@ -34,6 +34,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.clustering.metrics import rand_index as rand_index_fn
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import column as column_lib
@@ -152,8 +153,19 @@ def cluster_time_series(
     ``train_seconds`` covers training and assignment, ended by the copy
     of the assignments to the host.
     """
+    with obs.span("single.column"):
+        return _cluster_time_series(
+            series, labels, cfg, epochs, mode, seed, encoder, device, params
+        )
+
+
+def _cluster_time_series(
+    series, labels, cfg, epochs, mode, seed, encoder, device, params
+) -> ClusteringResult:
     device = backend_lib.default_device(device)
+    t = obs.now()
     volleys = _encode(_series(series, device), cfg, encoder)
+    t = obs.mark("single.encode", t)
     generator = torch.Generator().manual_seed(seed)
     if params is None:
         params = column_lib.init_params(cfg, generator, device)
@@ -161,13 +173,17 @@ def cluster_time_series(
         params = column_lib.init_params(cfg, device=device, w=params["w"])
 
     t0 = time.perf_counter()
+    obs.record("single.init", t, t0)
     params = column_lib.fit(
         params, volleys, cfg, epochs=epochs, mode=mode, generator=generator
     )
+    t = obs.mark("single.fit", t0)
     assignments = (
         column_lib.cluster_assignments(params, volleys, cfg, mode).cpu().numpy()
     )
-    train_seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    train_seconds = t1 - t0
+    obs.record("single.assign", t, t1)
 
     ri = float("nan")
     if labels is not None:
@@ -178,6 +194,7 @@ def cluster_time_series(
         if resolved == "pallas"
         else ""
     )
+    obs.mark("single.score", t1)
     return ClusteringResult(assignments, ri, params, train_seconds, mode, lowering)
 
 
@@ -247,6 +264,7 @@ def _sweep_bucket(
     dev = enc[idxs[0]].device
     n = enc[idxs[0]].shape[0]
 
+    t = obs.now()
     encb = torch.stack([enc[i] for i in idxs], dim=1)  # [N, Db, p]
     xs = torch.full((n, db, p_env), t_window, dtype=TIME_DTYPE, device=dev)
     xs[:, :, : encb.shape[-1]] = encb
@@ -257,11 +275,13 @@ def _sweep_bucket(
     thresholds = [cfgs[i].neuron.threshold for i in idxs]
     t_maxes = [cfgs[i].t_max for i in idxs]
     q_actives = [cfgs[i].q for i in idxs]
+    t = obs.mark("sweep.pad", t)
 
     plan = backend_lib.execution_plan(
         "fit", lowering, db, p_env, q_env, t_window, n, epochs,
         w_max=c0.neuron.w_max, response=c0.neuron.response,
     )
+    t = obs.mark("sweep.plan", t)
     w = fused_column.fit_scan_padded(
         w0, xs, thresholds, t_maxes, q_actives,
         t_window=t_window, w_max=c0.neuron.w_max, wta_k=c0.wta.k,
@@ -271,6 +291,7 @@ def _sweep_bucket(
         response=c0.neuron.response, epochs=epochs, lowering=lowering,
         v_blk=plan.v_blk,
     )
+    t = obs.mark("sweep.fit", t)
     # the assignment kernel fires the integer grid, so it runs only when
     # the trained weights sit on it; float weights take the reference fire
     asg = fused_column.assign_padded(
@@ -279,6 +300,7 @@ def _sweep_bucket(
         lowering=backend_lib.assign_lowering(c0.neuron.response, w),
         w_max=c0.neuron.w_max,
     ).cpu().numpy()
+    obs.mark("sweep.assign", t)
     w_out = [w[j, : cfgs[i].p, : cfgs[i].q] for j, i in enumerate(idxs)]
     return asg, w_out, plan.shards, plan.meta()
 
@@ -431,6 +453,17 @@ def cluster_time_series_many(
     each bucket.  ``train_seconds`` on every result is the whole sweep's
     wall time.
     """
+    with obs.span("sweep.run"):
+        return _cluster_time_series_many(
+            series, labels, cfgs, epochs, seed, encoder, waste_cap,
+            max_bucket, on_error, w_init, bucket_callback, monitor, device,
+        )
+
+
+def _cluster_time_series_many(
+    series, labels, cfgs, epochs, seed, encoder, waste_cap, max_bucket,
+    on_error, w_init, bucket_callback, monitor, device,
+) -> list[SweepOutcome]:
     if on_error not in ("raise", "isolate"):
         raise ValueError(
             f"unknown on_error: {on_error!r} ('raise' | 'isolate')"
@@ -438,7 +471,9 @@ def cluster_time_series_many(
     if not cfgs:
         return []
     device = backend_lib.default_device(device)
+    t = obs.now()
     x = _series(series, device)
+    obs.mark("sweep.encode", t)
     c0 = cfgs[0]
     lowering = backend_lib.padded_lowering(c0.neuron.response, x)
     for c in cfgs:
@@ -460,7 +495,9 @@ def cluster_time_series_many(
             "series)"
         )
     d = len(cfgs)
+    t = obs.now()
     enc = [_encode(x, c, encoder) for c in cfgs]  # D x [N, p]
+    t = obs.mark("sweep.encode", t)
     if w_init is None:
         generator = torch.Generator().manual_seed(seed)
         w_init = [
@@ -479,6 +516,7 @@ def cluster_time_series_many(
                 raise ValueError(
                     f"w_init shape {w.shape} != design shape {(c.p, c.q)}"
                 )
+    t = obs.mark("sweep.init", t)
 
     buckets = backend_lib.envelope_buckets(
         [(c.p, c.q, c.t_max) for c in cfgs],
@@ -489,22 +527,46 @@ def cluster_time_series_many(
     )
     out: list[Optional[SweepOutcome]] = [None] * d
     t0 = time.perf_counter()
-    for envelope, idxs in buckets:
-        if monitor is not None:
-            monitor.start()
-        if on_error == "isolate":
-            evals = _eval_bucket_guarded(
-                cfgs, idxs, envelope, enc, w_init, epochs, lowering
-            )
-        else:
-            asg_b, w_b, shards, plan_meta = _sweep_bucket(
-                cfgs, idxs, envelope, enc, w_init, epochs, lowering
-            )
-            evals = [
-                ("ok", asg_b[j], w_b[j], shards, lowering, 0, plan_meta)
-                for j in range(len(idxs))
-            ]
-        bucket_out: list[SweepOutcome] = []
+    obs.record("sweep.buckets", t, t0)
+    for bi, (envelope, idxs) in enumerate(buckets):
+        with obs.span("sweep.bucket",
+                      (bi, len(idxs), envelope) if obs.ON else ()):
+            if obs.ON:
+                p_env, q_env, t_window = envelope
+                obs.count("sweep.volume_live", sum(
+                    cfgs[i].p * cfgs[i].q * cfgs[i].t_max for i in idxs))
+                obs.count("sweep.volume_padded",
+                          len(idxs) * p_env * q_env * t_window)
+            _sweep_one(cfgs, labels, idxs, envelope, enc, w_init, epochs,
+                       lowering, on_error, len(buckets), out, monitor,
+                       bucket_callback)
+    train_seconds = time.perf_counter() - t0
+    for r in out:
+        if isinstance(r, ClusteringResult):
+            r.train_seconds = train_seconds
+    return out
+
+
+def _sweep_one(cfgs, labels, idxs, envelope, enc, w_init, epochs, lowering,
+               on_error, n_buckets, out, monitor, bucket_callback) -> None:
+    """One bucket of a sweep: train and assign it, score its designs into
+    ``out``, then hand them to ``bucket_callback``."""
+    if monitor is not None:
+        monitor.start()
+    if on_error == "isolate":
+        evals = _eval_bucket_guarded(
+            cfgs, idxs, envelope, enc, w_init, epochs, lowering
+        )
+    else:
+        asg_b, w_b, shards, plan_meta = _sweep_bucket(
+            cfgs, idxs, envelope, enc, w_init, epochs, lowering
+        )
+        evals = [
+            ("ok", asg_b[j], w_b[j], shards, lowering, 0, plan_meta)
+            for j in range(len(idxs))
+        ]
+    bucket_out: list[SweepOutcome] = []
+    with obs.span("sweep.score"):
         for i, ev in zip(idxs, evals):
             if not isinstance(ev, EvalFailure):
                 _, asg_i, w_i, shards_i, low_i, retries_i, plan_i = ev
@@ -523,20 +585,16 @@ def cluster_time_series_many(
                         ri = float(rand_index_fn(np.asarray(labels), asg_i))
                     ev = ClusteringResult(
                         np.asarray(asg_i), ri, {"w": w_i}, 0.0, "pallas",
-                        low_i, buckets=len(buckets), shards=shards_i,
+                        low_i, buckets=n_buckets, shards=shards_i,
                         retries=retries_i, plan=plan_i,
                     )
             out[i] = ev
             bucket_out.append(ev)
-        if monitor is not None:
-            monitor.stop()
-        if bucket_callback is not None:
+    if monitor is not None:
+        monitor.stop()
+    if bucket_callback is not None:
+        with obs.span("sweep.callback"):
             bucket_callback(list(idxs), bucket_out)
-    train_seconds = time.perf_counter() - t0
-    for r in out:
-        if isinstance(r, ClusteringResult):
-            r.train_seconds = train_seconds
-    return out
 
 
 # --------------------------------------------------- multi-layer networks

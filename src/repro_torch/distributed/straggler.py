@@ -61,8 +61,15 @@ class StepMonitor:
             return None
         dt = time.perf_counter() - self._t0
         self._t0 = None
+        return self.observe_next(dt, self._label)
+
+    def observe_next(
+        self, duration_s: float, label: str = ""
+    ) -> Optional[StragglerEvent]:
+        """Record the next step's duration, timed by the caller's own
+        clock readings (``stop`` times it from ``start``)."""
         self._step += 1
-        return self.observe(self._step, dt, label=self._label)
+        return self.observe(self._step, duration_s, label=label)
 
     def observe(
         self, step: int, duration_s: float, label: str = ""

@@ -41,6 +41,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import column as column_lib
 from repro_torch.core import simulator
@@ -187,6 +188,18 @@ def explore(
     Rand index with its forecasted area/leakage; every point's
     ``params['w']`` is a float32 numpy array.
     """
+    with obs.span("dse.explore"):
+        return _explore(
+            series, labels, space, epochs, search, budget, seed, forecaster,
+            waste_cap, max_bucket, on_error, journal, resume, monitor, device,
+        )
+
+
+def _explore(
+    series, labels, space, epochs, search, budget, seed, forecaster,
+    waste_cap, max_bucket, on_error, journal, resume, monitor, device,
+) -> DSEResult:
+    t_prepare = obs.now()
     if labels is None:
         raise ValueError(
             "explore ranks designs on the Rand index; labels are required"
@@ -276,10 +289,12 @@ def explore(
             )
 
     t0 = time.perf_counter()
+    obs.record("explore.prepare", t_prepare, t0)
     for encoder in dict.fromkeys(candidates[i].encoder for i in pending):
         idxs = [i for i in pending if candidates[i].encoder == encoder]
         cfgs = [cfgs_all[i] for i in idxs]
-        w_init = [initial_weights(seed, i, cfgs_all[i]) for i in idxs]
+        with obs.span("explore.prepare"):
+            w_init = [initial_weights(seed, i, cfgs_all[i]) for i in idxs]
 
         def on_bucket(local_idxs, results, idxs=idxs, encoder=encoder):
             recs = []
@@ -344,7 +359,8 @@ def explore(
             w_init=w_init, bucket_callback=on_bucket, monitor=mon,
             device=device,
         )
-    seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    seconds = t1 - t0
 
     done = [p for p in points if p is not None]
     encoders = list(dict.fromkeys(c.encoder for c in candidates))
@@ -360,7 +376,7 @@ def explore(
         for e in encoders
         if any(p.encoder == e for p in done)
     }
-    return DSEResult(
+    result = DSEResult(
         points=done,
         pareto=pareto_front(done),
         seconds=seconds,
@@ -386,6 +402,8 @@ def explore(
             "profile": getattr(costmodel.profile(), "name", ""),
         },
     )
+    obs.mark("explore.rank", t1)
+    return result
 
 
 def summarize(result: DSEResult) -> str:

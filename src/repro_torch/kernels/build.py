@@ -7,8 +7,9 @@ the root of the checkout, named by a hash of their sources and flags so an
 edited source is rebuilt; ``build_all`` starts one ``nvcc`` per source,
 all at once.  Nothing is built when a module is imported.
 
-Every kernel object keeps a plain-integer launch count: its wrapper adds
-one where it launches the kernel, and nowhere else.
+Every kernel object keeps plain-integer counts: ``launches`` (its wrapper
+adds one where it launches the kernel, and nowhere else), ``builds`` (runs
+of ``nvcc`` on its source) and ``binds`` (loads of its library).
 """
 from __future__ import annotations
 
@@ -82,6 +83,8 @@ class CudaKernel:
     flags: tuple = EXACT_FLAGS
     headers: tuple = TNN_HEADERS
     launches: int = 0
+    builds: int = 0
+    binds: int = 0
     ptxas_log: str = ""
     _fn: Optional[object] = dataclasses.field(default=None, repr=False)
     _smem: Optional[object] = dataclasses.field(default=None, repr=False)
@@ -119,6 +122,7 @@ class CudaKernel:
             smem.argtypes = list(self.smem_argtypes)
             smem.restype = ctypes.c_size_t
         self._lib, self._fn, self._smem = lib, fn, smem
+        self.binds += 1
 
     def function(self):
         """The bound C entry point.  The first use of any kernel builds
@@ -170,6 +174,7 @@ def _finish(kernel: CudaKernel, started) -> None:
             f"nvcc failed on {kernel.source} (exit {proc.returncode}):\n{log}"
         )
     kernel.ptxas_log = log
+    kernel.builds += 1
     os.replace(tmp, out)  # atomic publish: concurrent builds race safely
 
 

@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.types import ColumnConfig, TIME_DTYPE
 from repro_torch.kernels import build, ref
 
@@ -750,6 +751,12 @@ def _floats(v) -> np.ndarray:
 
 
 # ----------------------------------------------------- batched assignment
+def fire_chunk(d: int, p: int, q: int, t_window: int) -> int:
+    """Volleys a chunk of ``_fire_designs``: bounds the [D, chunk, p, q, T]
+    transient."""
+    return max(1, (1 << 25) // max(1, d * p * q * t_window))
+
+
 def _fire_designs(
     w: torch.Tensor,
     xs: torch.Tensor,
@@ -773,8 +780,7 @@ def _fire_designs(
     """
     d, n, p = xs.shape
     q = w.shape[2]
-    # volleys per chunk: bound the [D, chunk, p, q, T] transient
-    chunk = max(1, (1 << 25) // max(1, d * p * q * t_window))
+    chunk = fire_chunk(d, p, q, t_window)
     qi = torch.arange(q, dtype=torch.float32, device=w.device)
     out = []
     for c in range(0, n, chunk):
@@ -920,6 +926,9 @@ def assign_padded(
     tm = torch.as_tensor(_floats(t_maxes), dtype=torch.float32, device=dev)
     qa = torch.as_tensor(_floats(q_actives), dtype=torch.float32, device=dev)
     w = w.to(torch.float32).contiguous()
+    if obs.ON:
+        obs.count("assign.chunks", 1 if lowering == "cuda" else -(
+            -xs.shape[0] // fire_chunk(*w.shape, t_window)))
     if lowering == "cuda":
         if w_max is None:
             raise ValueError(

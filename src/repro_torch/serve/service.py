@@ -84,6 +84,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import encoding
 from repro_torch.core.types import column_config_from_dict
@@ -699,6 +700,19 @@ class ClusteringService:
         dispatch if it expired while queued.
         """
         self._offered += 1
+        with obs.span("serve.admit") as sp:
+            bucket, pending, t_submit = self._admit(series, design, deadline_s)
+            if obs.ON:
+                sp.end(t_submit, (pending.id,))
+        if len(bucket.queue) >= self.batch_size:
+            self._execute(bucket)
+        return pending
+
+    def _admit(self, series, design: str, deadline_s: Optional[float]
+               ) -> tuple[_Bucket, PendingRequest, float]:
+        """Validate, estimate the wait against the deadline, encode and
+        enqueue one request; returns its bucket, its handle and the
+        reading it was enqueued at."""
         if self._draining:
             self._reject(
                 "draining", "service is draining; no new work accepted"
@@ -752,27 +766,27 @@ class ClusteringService:
                     retry_after_s=est,
                 )
         # encoded in float32 on the host, as the simulator encodes
+        t = obs.now()
         enc = encoding.encode(
             torch.as_tensor(x, dtype=torch.float32), cfg.t_max, self.encoder
         ).numpy()
+        obs.mark("serve.encode", t)
         pending = PendingRequest(self, self._next_id, design)
         self._next_id += 1
         self._submitted += 1
-        bucket.queue.append(
-            _Request(pending, lane, enc, time.perf_counter(), deadline)
-        )
-        if len(bucket.queue) >= self.batch_size:
-            self._execute(bucket)
-        return pending
+        t_submit = time.perf_counter()
+        bucket.queue.append(_Request(pending, lane, enc, t_submit, deadline))
+        return bucket, pending, t_submit
 
     def flush(self, design: Optional[str] = None) -> None:
         """Execute partial batches now (all buckets, or ``design``'s)."""
         buckets = (
             self._buckets if design is None else [self._route[design][0]]
         )
-        for b in buckets:
-            while b.queue:
-                self._execute(b)
+        with obs.span("serve.flush"):
+            for b in buckets:
+                while b.queue:
+                    self._execute(b)
 
     # --------------------------------------------------------- execution
     def _silent_batch(self, bucket: _Bucket) -> np.ndarray:
@@ -798,13 +812,18 @@ class ClusteringService:
     def _assign(self, bucket: _Bucket, xs_np: np.ndarray) -> np.ndarray:
         """Ids [Db, B] of one host batch: one copy to the device, one
         ``assign_padded`` call, one copy of the ids back."""
+        t = obs.now()
         ids = fused_column.assign_padded(
             bucket.w, torch.from_numpy(xs_np).to(self.device),
             bucket.thresholds, bucket.t_maxes, bucket.q_actives,
             t_window=bucket.envelope[2], response=self._statics["response"],
             lowering=bucket.asg_lowering, w_max=self._statics["w_max"],
         )
-        return ids.cpu().numpy()
+        t = obs.mark("serve.fire", t)
+        obs.count("serve.lanes_fired", xs_np.shape[0] * xs_np.shape[1])
+        ids = ids.cpu().numpy()
+        obs.mark("serve.d2h", t)
+        return ids
 
     def _shed_expired(self, reqs: list[_Request]) -> list[_Request]:
         """Drop deadline-expired requests from a popped batch BEFORE any
@@ -816,12 +835,23 @@ class ClusteringService:
             waited = now - r.t_submit
             if r.deadline is not None and waited > r.deadline:
                 self._shed += 1
+                obs.request(r.pending.id, r.t_submit, now, now, "shed")
                 r.pending.outcome = ServeShed(
                     r.pending.id, r.pending.design, "deadline", waited
                 )
             else:
                 live.append(r)
         return live
+
+    def _trace_served(self, reqs: list[_Request], t_dispatched: float,
+                      t_done: float) -> None:
+        """The tracer's records and counters of one fire's live requests
+        (call only with tracing on)."""
+        obs.count("serve.batch_live", len(reqs))
+        obs.count("serve.batch_slots", self.batch_size)
+        for r in reqs:
+            obs.request(r.pending.id, r.t_submit, t_dispatched, t_done,
+                        "served")
 
     def _execute(self, bucket: _Bucket) -> None:
         reqs = bucket.queue[: self.batch_size]
@@ -831,30 +861,42 @@ class ClusteringService:
         reqs = self._shed_expired(reqs)
         if not reqs:
             return
-        self.monitor.start("assign")
+        # one clock reading a boundary: the span, the monitor, the batch
+        # EWMA and the requests' latencies share t0 and done
         t0 = time.perf_counter()
-        try:
-            ids = self._assign(bucket, self._batch_xs(bucket, reqs))
-        except Exception:
-            self.monitor.stop()
+        attrs = (
+            (bucket.index, len(reqs), tuple(r.pending.id for r in reqs))
+            if obs.ON else ()
+        )
+        with obs.span("serve.batch", attrs, t0=t0):
+            try:
+                with obs.span("serve.assemble"):
+                    xs = self._batch_xs(bucket, reqs)
+                ids = self._assign(bucket, xs)
+            except Exception:  # noqa: BLE001 - quarantined below
+                ids = None
+            done = time.perf_counter()
+            self.monitor.observe_next(done - t0, "assign")
+            if ids is not None:
+                self._batch_ewma = (
+                    done - t0 if self._batch_ewma is None
+                    else 0.8 * self._batch_ewma + 0.2 * (done - t0)
+                )
+                self._batches += 1
+                with obs.span("serve.complete", t0=done):
+                    for n, r in enumerate(reqs):
+                        self._complete(
+                            bucket, r,
+                            ServeResult(
+                                r.pending.id, r.pending.design,
+                                int(ids[r.lane, n]), done - r.t_submit,
+                            ),
+                        )
+                    if obs.ON:
+                        self._trace_served(reqs, t0, done)
+        if ids is None:
             self._isolate(bucket, reqs)
             return
-        self.monitor.stop()
-        done = time.perf_counter()
-        dt = done - t0
-        self._batch_ewma = (
-            dt if self._batch_ewma is None
-            else 0.8 * self._batch_ewma + 0.2 * dt
-        )
-        self._batches += 1
-        for n, r in enumerate(reqs):
-            self._complete(
-                bucket, r,
-                ServeResult(
-                    r.pending.id, r.pending.design,
-                    int(ids[r.lane, n]), done - r.t_submit,
-                ),
-            )
         self._maybe_refit(bucket)
 
     def _isolate(self, bucket: _Bucket, reqs: list[_Request]) -> None:
@@ -863,26 +905,33 @@ class ClusteringService:
         per-volley independent, so survivors' answers are bit-identical
         to the batched run; only the poisoned request fails."""
         self._isolations += 1
-        for r in reqs:
-            self.monitor.start("assign")
-            try:
-                ids = self._assign(bucket, self._batch_xs(bucket, [r]))
-            except Exception as e:
-                self.monitor.stop()
-                self._failed += 1
-                r.pending.outcome = ServeFailure(
-                    r.pending.id, r.pending.design, "assign", repr(e)
+        with obs.span("serve.isolate", (bucket.index, len(reqs))
+                      if obs.ON else ()):
+            for r in reqs:
+                t0 = time.perf_counter()
+                try:
+                    ids = self._assign(bucket, self._batch_xs(bucket, [r]))
+                except Exception as e:
+                    done = time.perf_counter()
+                    self.monitor.observe_next(done - t0, "assign")
+                    self._failed += 1
+                    r.pending.outcome = ServeFailure(
+                        r.pending.id, r.pending.design, "assign", repr(e)
+                    )
+                    obs.request(r.pending.id, r.t_submit, t0, done, "failed")
+                    continue
+                done = time.perf_counter()
+                self.monitor.observe_next(done - t0, "assign")
+                self._batches += 1
+                self._complete(
+                    bucket, r,
+                    ServeResult(
+                        r.pending.id, r.pending.design,
+                        int(ids[r.lane, 0]), done - r.t_submit,
+                    ),
                 )
-                continue
-            self.monitor.stop()
-            self._batches += 1
-            self._complete(
-                bucket, r,
-                ServeResult(
-                    r.pending.id, r.pending.design,
-                    int(ids[r.lane, 0]), time.perf_counter() - r.t_submit,
-                ),
-            )
+                if obs.ON:
+                    self._trace_served([r], t0, done)
         self._maybe_refit(bucket)
 
     def _complete(
@@ -945,16 +994,19 @@ class ClusteringService:
         errors)`` — ``w_new`` is ``None`` when every rung failed."""
         errors: list[str] = []
         for low in ladder:
-            self.monitor.start(label)
             t0 = time.perf_counter()
             try:
                 w_new = self._fit_window(bucket, xs_np, low)
             except Exception as e:
-                self.monitor.stop()
+                t1 = time.perf_counter()
+                self.monitor.observe_next(t1 - t0, label)
+                obs.record("serve.refit_fit", t0, t1)
                 errors.append(f"{low}: {e!r}")
                 continue
-            self.monitor.stop()
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            dt = t1 - t0
+            self.monitor.observe_next(dt, label)
+            obs.record("serve.refit_fit", t0, t1)
             if (
                 enforce_budget
                 and self.refit_budget_s is not None
@@ -966,7 +1018,9 @@ class ClusteringService:
                     f"{self.refit_budget_s:.3f}s) — result discarded"
                 )
                 continue
-            if not bool(torch.isfinite(w_new).all()):
+            with obs.span("serve.refit_check"):
+                finite = bool(torch.isfinite(w_new).all())
+            if not finite:
                 errors.append(f"{low}: non-finite weights (poisoned re-fit)")
                 continue
             return w_new, low, errors
@@ -983,7 +1037,13 @@ class ClusteringService:
         )
 
     def _refit(self, bucket: _Bucket, warm: bool = False) -> None:
+        with obs.span("serve.refit", (bucket.index,) if obs.ON else ()):
+            self._refit_bucket(bucket, warm)
+
+    def _refit_bucket(self, bucket: _Bucket, warm: bool) -> None:
+        t = obs.now()
         xs = self._refit_xs(bucket)
+        obs.mark("serve.refit_window", t)
         if warm:
             # warmup's all-silent window: single rung, no budget (the
             # kernel may still be building), no WAL, no counters
@@ -992,7 +1052,9 @@ class ClusteringService:
                 enforce_budget=False,
             )
             if w_new is not None:
+                t = obs.now()
                 self._commit_weights(bucket, w_new)
+                obs.mark("serve.commit", t)
         else:
             w_new, _low, errors = self._attempt_window(
                 bucket, xs,
@@ -1009,6 +1071,7 @@ class ClusteringService:
                 bucket.degraded = True
                 bucket.last_refit_errors = errors
             else:
+                t = obs.now()
                 self._commit_weights(bucket, w_new)
                 self._refits += 1
                 self._refit_seq += 1
@@ -1025,6 +1088,7 @@ class ClusteringService:
                     )
                     if self._refit_seq % self.snapshot_every == 0:
                         self._snapshot()
+                obs.mark("serve.commit", t)
         for buf in bucket.buffers:
             buf.clear()
         bucket.served_since_refit = 0
