@@ -7,7 +7,7 @@ Runs from the root of a checkout on a host with one NVIDIA H100 (sm_90)
 and the CUDA toolkit.  Imports the port (``src/repro_torch``) only, never
 JAX or the JAX package.  Phases, each of which asserts:
 
-1. build: all six CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), with nvcc's ``-Xptxas -v`` lines;
 2. the fused-step kernel against its plain PyTorch version: one volley
    (D = 1 at WordSynonyms and Lightning2, D = 4 heterogeneous; wta_k 1
@@ -40,7 +40,8 @@ JAX or the JAX package.  Phases, each of which asserts:
    mixed launch with negative times in one design only): times and ids
    equal; once phase 8 has run, again on the very inputs of each of the
    integer-grid sweep's launches (each bucket's trained weights and
-   int32 volleys);
+   int32 volleys); and the float-weight fire kernel against its plain
+   version on the inputs of each of phase 11's launches (times and ids);
 6. the STDP-update kernel against its plain version (13 x 3, 270 x 25,
    650 x 130, 7 x 1 and 540 x 50; stabilizer on and off; int32 and f32
    times with silent entries; weights outside [0, 7] and at x.5): equal;
@@ -69,7 +70,7 @@ JAX or the JAX package.  Phases, each of which asserts:
     the full WordSynonyms stream, 24 candidates (q 25/50 x t_max 32/64 x
     three threshold scales x latency/on-off encoders), 4 epochs: nothing
     quarantined or retried, every point on 'cuda', the volley-block
-    launches as computed; again with a journal cut after its first
+    launches as computed, one float-weight fire launch a bucket; again with a journal cut after its first
     bucket and resumed: bit-identical; and one candidate of each encoder
     (the on/off one at 540 x 50) on the CPU from the same initial
     weights: equal ids, Rand index and weights;
@@ -120,7 +121,9 @@ JAX or the JAX package.  Phases, each of which asserts:
     beside it), the STDP update on the ops path's first volley (its
     int32 times, and as f32) and at the phase 6 shapes, the four fire
     kernels at 650 x 130 in the device-memory layout (the two
-    frozen-weight ones on int32 and on f32 times), and the flash kernel
+    frozen-weight ones on int32 and on f32 times), the float-weight fire
+    on phase 11's on/off launch (D = 12 at 540 x 50, N = 900, beside its
+    plain version and its bound in the slope form), and the flash kernel
     at the granite prefill
     shape beside its plain version and PyTorch's
     ``scaled_dot_product_attention`` (bound by the operations of its
@@ -538,26 +541,28 @@ def record_calls(module, name: str, sink: list):
     return lambda: setattr(module, name, orig)
 
 
-def check_path_fire_calls(fused_column, calls) -> float:
-    """Phase 5, second half: the batched-fire kernel against its plain
-    version on the inputs that the sweep path gave it; returns the
-    largest difference."""
+def check_path_fire_calls(fused_column, calls, name: str = "fire_block") -> float:
+    """Phase 5, second half: a frozen-weight fire kernel (``fire_block``,
+    or ``fire_float``) against its plain version on the inputs that its
+    path gave it; returns the largest difference."""
     import torch
 
+    kernel = getattr(fused_column, f"{name}_padded")
+    plain = getattr(fused_column, f"{name}_padded_plain")
     worst = 0.0
     for (w, xs, ops), kw in calls:
         assert xs.dtype == torch.int32, ("the path's volleys reach the kernel as", xs.dtype)
-        got = fused_column.fire_block_padded(w, xs, ops, **kw)
-        ref = fused_column.fire_block_padded_plain(w, xs, ops, **kw)
+        got = kernel(w, xs, ops, **kw)
+        ref = plain(w, xs, ops, **kw)
         ids = fused_column._ids_from_times(got, ops[:, 1], ops[:, 2])
         ids_ref = fused_column._ids_from_times(ref, ops[:, 1], ops[:, 2])
         dt = float((got - ref).abs().max())
         worst = max(worst, dt)
         d, n, p = xs.shape
-        log(f"[fire_block] path launch D={d} N={n} {p}x{w.shape[2]} times={xs.dtype} "
+        log(f"[{name}] path launch D={d} N={n} {p}x{w.shape[2]} times={xs.dtype} "
             f"max|dt|={dt} ids equal={torch.equal(ids, ids_ref)}")
-        assert torch.equal(got, ref), "fire_block: firing times differ on the path"
-        assert torch.equal(ids, ids_ref), "fire_block: ids differ on the path"
+        assert torch.equal(got, ref), f"{name}: firing times differ on the path"
+        assert torch.equal(ids, ids_ref), f"{name}: ids differ on the path"
     return worst
 
 
@@ -610,6 +615,32 @@ def fire_bound(fused_column, w, xs, ops, kw) -> tuple[int, int, int]:
     t_max = ops[:, 1:2, None]
     return (n_bytes, n_scatter + fire_ops(1, tf, t_max, live),
             fire_ops(p, tf, t_max, live))
+
+
+def float_fire_bound(fused_column, w, xs, ops, t_window) -> tuple[int, int]:
+    """Bytes and operations of one float-weight fire launch on these
+    inputs: volleys, weights and operands read once, times written once.
+    Operations in the slope form, as ``fire_bound`` counts them with
+    ceil(w) for the grid weight: one add for each live synapse with w > 0
+    whose ramp starts inside [0, t_end), one more where it tops out there
+    (the final step), and two a cycle for each live neuron's scan up to
+    its crossing."""
+    import math
+
+    import torch
+
+    d, n, p = xs.shape
+    q = w.shape[2]
+    tf = fused_column.fire_float_padded_plain(w, xs, ops, t_window=t_window)
+    live = (torch.arange(q, device=w.device) < ops[:, 2:3, None]).long()
+    n_scatter = 0
+    for k in range(d):
+        t_end = min(t_window, math.ceil(float(ops[k, 1])))
+        ti = xs[k].float()[:, :, None]
+        up = (ti >= 0) & (ti < t_end) & (w[k] > 0) & live[k, 0].bool()
+        n_scatter += int(up.sum()) + int((up & (ti + torch.ceil(w[k]) <= t_end)).sum())
+    n_bytes = 4 * (d * n * p + d * p * q + d * 6 + d * n * q)
+    return n_bytes, n_scatter + fire_ops(1, tf, ops[:, 1:2, None], live)
 
 
 def block_bound(fused_column, w, blk, ops, kw) -> tuple[int, int, int]:
@@ -1339,7 +1370,7 @@ def tnn_serving(build, fused_column, simulator, ucr, dev, card, timer) -> dict:
             f"| {card}")
     assert len(rows["fire"]) == len(rows["block"]) == len(svc.buckets())
 
-    # the default-STDP fleet: float weights (plain-PyTorch assignment),
+    # the default-STDP fleet: float weights (the fire_float assignment),
     # re-fits on fused_block; card against CPU
     fleet_f, w_f = serving_fleet(grid=False)
     kw_f = dict(batch_size=SERVE_BATCH, weights=w_f)
@@ -2857,9 +2888,9 @@ def main() -> int:
         assert grew["fused_block"] == n_b * EPOCHS * blocks, grew
         assert grew["fused_step"] == 0 and grew["rnl_fire"] == 0, grew
         if grid:
-            assert grew["fire_block"] >= 1, grew
-        else:
-            assert grew["fire_block"] == 0, grew
+            assert grew["fire_block"] >= 1 and grew["fire_float"] == 0, grew
+        else:  # float weights: one float-weight fire a bucket
+            assert grew["fire_block"] == 0 and grew["fire_float"] == n_b, grew
         assert len(fire_calls) == grew["fire_block"], len(fire_calls)
 
     # assignment alone, one integer-grid design
@@ -2962,7 +2993,7 @@ def main() -> int:
         f"{torch.equal(w_loop, w_fused)}; fused == CPU "
         f"{torch.equal(w_fused.cpu(), w_cpu)} | {card}")
     assert ops_launches == {"fused_step": 1, "rnl_fire": n_ws,
-                            "fused_block": 0, "fire_block": 0,
+                            "fused_block": 0, "fire_block": 0, "fire_float": 0,
                             "stdp_update": n_ws, "flash_attention": 0}, ops_launches
     assert torch.equal(w_loop, w_fused), "ops: unfused loop and train_volleys differ"
     assert torch.equal(w_fused.cpu(), w_cpu), "ops: card and CPU differ"
@@ -2974,8 +3005,13 @@ def main() -> int:
                             encoder=("latency", "onoff"))
     for k in build.KERNELS:
         k.launches = 0
+    float_calls: list = []  # the float-weight fire's inputs, a bucket each
+    unwrap = record_calls(fused_column, "fire_float_padded", float_calls)
     t0 = time.perf_counter()
-    res_dse = dse.explore(ws.x, ws.y, space, epochs=DSE_EPOCHS, device="cuda")
+    try:
+        res_dse = dse.explore(ws.x, ws.y, space, epochs=DSE_EPOCHS, device="cuda")
+    finally:
+        unwrap()
     dse_s = time.perf_counter() - t0
     dse_launches = {k.name: k.launches for k in build.KERNELS}
     per_epoch = {
@@ -3001,7 +3037,9 @@ def main() -> int:
         assert np.all(np.isfinite(pt.params["w"]))
     assert dse_launches["fused_block"] == DSE_EPOCHS * sum(per_epoch.values())
     assert dse_launches["fused_step"] == dse_launches["rnl_fire"] == 0
-    assert dse_launches["stdp_update"] == 0
+    assert dse_launches["stdp_update"] == dse_launches["fire_block"] == 0
+    assert dse_launches["fire_float"] == len(float_calls) == 2, dse_launches
+    err["fire_float"] = check_path_fire_calls(fused_column, float_calls, "fire_float")
 
     class CountingJournal(dse.Journal):
         """Remembers how many records each bucket appended."""
@@ -3227,6 +3265,20 @@ def main() -> int:
         f"({rows['sweep']['fire'][3]}, the slope form; the ramp sum's "
         f"{fire_sum[6]!r} ms) | {card}")
 
+    # the float-weight fire on the DSE's on/off launch (D = 12 at 540 x
+    # 50, N = 900, the trained weights and int32 volleys of phase 11)
+    (w, xs, ops), float_kw = next(c for c in float_calls if c[0][1].shape[2] == 540)
+    ff_ms = timer(lambda: fused_column.fire_float_padded(w, xs, ops, **float_kw), 20)
+    ff_plain = timer(lambda: fused_column.fire_float_padded_plain(
+        w, xs, ops, **float_kw), 2, warmup=1)
+    ff_bytes, ff_ops = float_fire_bound(fused_column, w, xs, ops, float_kw["t_window"])
+    rows["dse"] = dict(float=(ff_ms, ff_plain, *bound_ms(ff_bytes, ff_ops)))
+    d, n, p = xs.shape
+    log(f"[time] dse on/off launch D={d} {p}x{w.shape[2]} fire_float N={n} int32 "
+        f"times ms={ff_ms!r} plain_ms={ff_plain!r} bound_ms={rows['dse']['float'][2]!r} "
+        f"({rows['dse']['float'][3]}; {ff_bytes} B, {ff_ops} ops of the slope form) "
+        f"{layout_name(build.FIRE_FLOAT, p, w.shape[2], float_kw['t_window'])} | {card}")
+
     # the STDP update: the ops path's first volley (270 x 25), then the
     # phase 6 shapes on their own inputs
     c_stdp = cfg_ws.stdp
@@ -3291,6 +3343,7 @@ def main() -> int:
     wsr = rows["WordSynonyms"]
     path_launches = dict(launches, fused_block=sweep_launches["fused_block"],
                          fire_block=sweep_launches["fire_block"],
+                         fire_float=dse_launches["fire_float"],
                          stdp_update=ops_launches["stdp_update"],
                          flash_attention=lm["launches"])
     entries = []
@@ -3303,6 +3356,9 @@ def main() -> int:
         (build.FIRE_BLOCK, rows["sweep"]["fire"],
          f"sum of the grid sweep's launches: {' + '.join(shapes)}, "
          f"N={n_ws} t_window=64"),
+        (build.FIRE_FLOAT, rows["dse"]["float"],
+         f"the DSE's on/off launch: D=12 540x50 N={n_ws} t_window=64, trained "
+         f"float weights"),
         (build.STDP_UPDATE, rows["stdp"], "270x25 t_max=64, the ops path's volley 0"),
     ):
         entries.append({

@@ -127,11 +127,13 @@ def execution_plan(
 def assign_lowering(response: str, w: torch.Tensor) -> str:
     """Lowering of the batched assignment pass, given the trained weights.
 
-    The assignment kernel fires the integer weight grid, the reference
-    body the float weights.  So the kernel is a pure lowering choice only
-    when the weights already sit on the grid (after integer-mu,
-    unstabilized training from integer init); off-grid weights take the
-    reference body on every device.
+    The ``'cuda'`` lowering fires the integer weight grid
+    (``fire_block``), the reference lowering the float weights as they
+    are (on the card the ``fire_float`` kernel, on the CPU its plain
+    version).  So the grid kernel is a pure lowering choice only when the
+    weights already sit on the grid (after integer-mu, unstabilized
+    training from integer init); off-grid weights take the reference
+    lowering on every device.
     """
     low = padded_lowering(response, w)
     if low == "reference":

@@ -210,8 +210,9 @@ def assign_time_series(
     Encodes one series [L] (returns a scalar id) or a batch [N, L]
     (returns [N] ids) and fires it against ``params['w']``.  Configs
     inside the fused fire contract go through ``fused_column.assign_padded``
-    (the batched-fire kernel on the card when the weights sit on the
-    integer grid); the rest (LIF) through ``column.cluster_assignments``.
+    (on the card one launch of the integer-grid fire kernel when the
+    weights sit on the grid, else of the float-weight one, for RNL); the
+    rest (LIF) through ``column.cluster_assignments``.
     Ids: the earliest-firing neuron, ``cfg.q`` for a silent volley.
     """
     device = backend_lib.default_device(device)
@@ -292,8 +293,9 @@ def _sweep_bucket(
         v_blk=plan.v_blk,
     )
     t = obs.mark("sweep.fit", t)
-    # the assignment kernel fires the integer grid, so it runs only when
-    # the trained weights sit on it; float weights take the reference fire
+    # the grid kernel fires the integer grid, so it runs only when the
+    # trained weights sit on it; float weights take the reference lowering
+    # (the float-weight kernel on the card)
     asg = fused_column.assign_padded(
         w, xs, thresholds, t_maxes, q_actives, t_window=t_window,
         response=c0.neuron.response,

@@ -243,6 +243,16 @@ FIRE_BLOCK = CudaKernel(
     smem_argtypes=(_I, _I, _I, _I),  # p, q, t_window, resident
 )
 
+FIRE_FLOAT = CudaKernel(
+    name="fire_float",
+    source="fire_float.cu",
+    symbol="tnn_fire_float",
+    argtypes=(_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P),
+    replaces="src/repro/kernels/fused_column.py:143 fire_dense_ref (the "
+             "reference fire of assign_padded, :1082)",
+    smem_argtypes=(_I, _I, _I, _I),  # p, q, t_window, resident
+)
+
 STDP_UPDATE = CudaKernel(
     name="stdp_update",
     source="stdp_update.cu",
@@ -263,5 +273,5 @@ FLASH_ATTENTION = CudaKernel(
     headers=(),
 )
 
-KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, STDP_UPDATE,
-           FLASH_ATTENTION)
+KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, FIRE_FLOAT,
+           STDP_UPDATE, FLASH_ATTENTION)

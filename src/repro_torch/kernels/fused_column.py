@@ -30,7 +30,8 @@ one (p, q, t_window) envelope, their scalars runtime operands.
   version and the reference lowering.  Blocking never changes a result.
 * ``assign_padded`` fires the whole stream at once: ``fire_block_padded``
   wraps ``csrc/fire_block.cu`` (port of ``_fire_block_kernel``) on the
-  integer grid; the reference lowering fires the float weights.
+  integer grid; the reference lowering fires the float weights, on the
+  card with ``fire_float_padded`` (``csrc/fire_float.cu``, one launch).
 
 Scope (``check_fusable``): ``response in ('rnl', 'snl')`` (``'rnl'`` only
 for the CUDA lowering), expected-mode STDP, index tie-break WTA.
@@ -218,15 +219,9 @@ def _eps(w_max: int) -> float:
 
 
 def _check_cuda_operands(name: str, tensors: tuple, times: tuple = ()) -> None:
-    """The wrappers' common checks: one CUDA device, contiguous, f32
-    ``tensors`` and int32 or f32 ``times``."""
+    """The wrappers' common checks: f32 ``tensors`` and int32 or f32
+    ``times``, contiguous, on one CUDA device."""
     every = tuple(tensors) + tuple(times)
-    dev = every[0].device
-    if not all(t.is_cuda and t.device == dev for t in every):
-        raise ValueError(
-            f"{name} needs its tensors on one CUDA device (or all on the "
-            f"CPU), got {[str(t.device) for t in every]}"
-        )
     if any(t.dtype != torch.float32 for t in tensors) or any(
         t.dtype not in (TIME_DTYPE, torch.float32) for t in times
     ):
@@ -236,6 +231,12 @@ def _check_cuda_operands(name: str, tensors: tuple, times: tuple = ()) -> None:
         )
     if any(not t.is_contiguous() for t in every):
         raise ValueError(f"{name} needs contiguous tensors")
+    dev = every[0].device
+    if not all(t.is_cuda and t.device == dev for t in every):
+        raise ValueError(
+            f"{name} needs its tensors on one CUDA device (or all on the "
+            f"CPU), got {[str(t.device) for t in every]}"
+        )
 
 
 def fused_step_padded_plain(
@@ -766,13 +767,16 @@ def _fire_designs(
     t_window: int,
     response: str,
 ) -> torch.Tensor:
-    """Firing times of every volley of every design, dense and chunked.
+    """Firing times of every volley of every design, dense and chunked:
+    the plain version of ``csrc/fire_float.cu`` (``fire_float_padded``),
+    and the float-weight fire of CPU tensors and of SNL.
 
     w [D, p, q]; xs [D, N, p]; thr, tm, qa [D, 1, 1] -> [D, N, q] f32,
     clamped to t_max, neurons at or past q_active at t_max.  The
     potential is summed in float64: on integer-grid weights that is the
     f32 sum exactly, and on float weights it makes the result independent
-    of the order in which the device reduces (so card and CPU agree).
+    of the order in which the device reduces (so card, kernel and CPU
+    agree).
     The JAX package's reference sums float weights in float32, so a
     potential within float32 rounding of the threshold could cross one
     cycle apart; none did at WordSynonyms width
@@ -801,11 +805,10 @@ def fire_block_padded_plain(
     w_max: int,
 ) -> torch.Tensor:
     """Plain PyTorch version of the CUDA batched fire (same arguments;
-    int32 and float32 volleys of the same times give the same result)."""
-    ops = operands[:, :, None]
+    int32 and float32 volleys of the same times give the same result):
+    the float-weight fire of the weights rounded to the grid."""
     wi = torch.round(torch.clamp(w, 0.0, float(w_max)))
-    return _fire_designs(wi, xs, ops[:, 0:1], ops[:, 1:2], ops[:, 2:3],
-                         t_window, "rnl")
+    return fire_float_padded_plain(wi, xs, operands, t_window=t_window)
 
 
 def fire_block_padded(
@@ -833,29 +836,13 @@ def fire_block_padded(
     where the grid does not fit in shared memory beside a tile of volleys
     and the warps' rows.
     """
-    tensors = (w, xs, operands)
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(t.device.type == "cpu" for t in (w, xs, operands)):
         return fire_block_padded_plain(w, xs, operands, t_window=t_window,
                                        w_max=w_max)
-    _check_cuda_operands("fire_block_padded", (w, operands), times=(xs,))
-    if w.dim() != 3 or xs.dim() != 3:
-        raise ValueError(
-            f"fire_block_padded needs w [D, p, q] and xs [D, N, p], got "
-            f"{tuple(w.shape)} and {tuple(xs.shape)}"
-        )
-    d, p, q = w.shape
-    n = xs.shape[1]
-    if (xs.shape[0], xs.shape[2]) != (d, p) or tuple(operands.shape) != (
-        d, N_OPERANDS
-    ):
-        raise ValueError(
-            f"fire_block_padded: w {tuple(w.shape)} needs xs {(d, n, p)} "
-            f"and operands {(d, N_OPERANDS)}, got {tuple(xs.shape)} and "
-            f"{tuple(operands.shape)}"
-        )
     k = build.FIRE_BLOCK
-    resident = k.resident(f"a {p} x {q} envelope", p, q, int(t_window))
-    t_fire = torch.empty((d, n, q), dtype=torch.float32, device=w.device)
+    resident, t_fire = _fire_launch_operands(k, w, xs, operands, t_window)
+    d, n, p = xs.shape
+    q = w.shape[2]
     if d == 0 or n == 0:
         return t_fire
     grid = build.grid_workspace(w, resident)
@@ -866,6 +853,92 @@ def fire_block_padded(
         rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(), build.ptr(grid),
                 int(resident), int(xs.dtype == TIME_DTYPE), t_fire.data_ptr(),
                 d, n, p, q, int(t_window), int(w_max), stream)
+    build.check_launch(k, rc)
+    return t_fire
+
+
+def _fire_launch_operands(
+    k: build.CudaKernel, w: torch.Tensor, xs: torch.Tensor,
+    operands: torch.Tensor, t_window: int,
+) -> tuple[bool, torch.Tensor]:
+    """The frozen-weight fire wrappers' checks (shapes, then dtypes,
+    contiguity and one CUDA device), all before any build or launch; then
+    the layout the kernel takes and the [D, N, q] f32 output."""
+    name = f"{k.name}_padded"
+    if w.dim() != 3 or xs.dim() != 3:
+        raise ValueError(
+            f"{name} needs w [D, p, q] and xs [D, N, p], got "
+            f"{tuple(w.shape)} and {tuple(xs.shape)}"
+        )
+    d, p, q = w.shape
+    n = xs.shape[1]
+    if (xs.shape[0], xs.shape[2]) != (d, p) or tuple(operands.shape) != (
+        d, N_OPERANDS
+    ):
+        raise ValueError(
+            f"{name}: w {tuple(w.shape)} needs xs {(d, n, p)} and operands "
+            f"{(d, N_OPERANDS)}, got {tuple(xs.shape)} and "
+            f"{tuple(operands.shape)}"
+        )
+    _check_cuda_operands(name, (w, operands), times=(xs,))
+    resident = k.resident(f"a {p} x {q} envelope", p, q, int(t_window))
+    return resident, torch.empty((d, n, q), dtype=torch.float32, device=w.device)
+
+
+def fire_float_padded_plain(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    t_window: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the CUDA float-weight fire (same
+    arguments): ``_fire_designs`` on the weights as they are."""
+    ops = operands[:, :, None]
+    return _fire_designs(w, xs, ops[:, 0:1], ops[:, 1:2], ops[:, 2:3],
+                         t_window, "rnl")
+
+
+def fire_float_padded(
+    w: torch.Tensor,
+    xs: torch.Tensor,
+    operands: torch.Tensor,
+    *,
+    t_window: int,
+) -> torch.Tensor:
+    """Frozen-weight RNL fire of N volleys for D designs on the float
+    weights as they are: the wrapper of ``csrc/fire_float.cu``.
+
+    Args:
+      w: [D, p, q] f32 weights, unrounded (any values, NaN and +-inf too).
+      xs: [D, N, p] int32 or f32 volleys; a time >= the design's t_max is
+        silent.  The kernel reads int32 times as they are and fires a tile
+        of them in the slope form where none is negative (else, and for
+        f32 times, by the float64 ramp sum; the result is the same).
+      operands: [D, N_OPERANDS] f32 (threshold, t_max, q_active used).
+
+    Returns t_fire [D, N, q] f32, clamped to t_max, neurons at or past
+    q_active at t_max: ``fire_float_padded_plain``'s times bit for bit
+    wherever its float64 sum is exact (see the source).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel once (or raise),
+    with the weights in shared memory where they fit beside a tile of
+    volleys and the warps' rows, else read through L2.
+    """
+    if all(t.device.type == "cpu" for t in (w, xs, operands)):
+        return fire_float_padded_plain(w, xs, operands, t_window=t_window)
+    k = build.FIRE_FLOAT
+    resident, t_fire = _fire_launch_operands(k, w, xs, operands, t_window)
+    d, n, p = xs.shape
+    q = w.shape[2]
+    if d == 0 or n == 0:
+        return t_fire
+    fn = k.function()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        k.launches += 1
+        rc = fn(operands.data_ptr(), xs.data_ptr(), w.data_ptr(),
+                int(resident), int(xs.dtype == TIME_DTYPE), t_fire.data_ptr(),
+                d, n, p, q, int(t_window), stream)
     build.check_launch(k, rc)
     return t_fire
 
@@ -903,9 +976,11 @@ def assign_padded(
     ``'cuda'`` fires the integer weight grid with ``fire_block_padded``
     (one launch; ``w_max`` required, and only a pure lowering choice when
     the weights are on the grid, see ``backend.assign_lowering``);
-    ``'reference'`` fires the float weights, in chunks of volleys sized
-    to bound memory (the JAX package's ``v_blk`` blocks; no result
-    depends on either).
+    ``'reference'`` fires the float weights as they are: on CUDA tensors
+    and RNL with ``fire_float_padded`` (one launch), else (CPU tensors,
+    SNL) with ``_fire_designs``, in chunks of volleys sized to bound
+    memory (the JAX package's ``v_blk`` blocks; no result depends on
+    them).
     The id is the winner index, or q_active for a silent volley; k-WTA
     keeps the global minimum for any k, so no ``wta_k`` is needed.
     """
@@ -922,27 +997,31 @@ def assign_padded(
             f"{fire_responses(lowering)}, got {response!r}; use "
             "lowering='reference'"
         )
+    if lowering == "cuda" and w_max is None:
+        raise ValueError(
+            "the kernel assign lowering needs w_max (integer-grid fire)"
+        )
     dev = w.device
     tm = torch.as_tensor(_floats(t_maxes), dtype=torch.float32, device=dev)
     qa = torch.as_tensor(_floats(q_actives), dtype=torch.float32, device=dev)
     w = w.to(torch.float32).contiguous()
+    kernel = lowering == "cuda" or (dev.type == "cuda" and response == "rnl")
     if obs.ON:
-        obs.count("assign.chunks", 1 if lowering == "cuda" else -(
+        obs.count("assign.chunks", 1 if kernel else -(
             -xs.shape[0] // fire_chunk(*w.shape, t_window)))
-    if lowering == "cuda":
-        if w_max is None:
-            raise ValueError(
-                "the kernel assign lowering needs w_max (integer-grid fire)"
-            )
+    if kernel:
         operands = design_operands(
             _floats(thresholds), _floats(t_maxes), _floats(q_actives),
             0.0, 0.0, 0.0, device=dev,
         )
-        # int32 volleys as they are (the kernel's slope form), others as f32
+        # int32 volleys as they are (the kernels' slope form), others as f32
         dt = TIME_DTYPE if xs.dtype == TIME_DTYPE else torch.float32
         xs_d = xs.to(device=dev, dtype=dt).transpose(0, 1).contiguous()
-        t_fire = fire_block_padded(w, xs_d, operands, t_window=t_window,
-                                   w_max=w_max)
+        if lowering == "cuda":
+            t_fire = fire_block_padded(w, xs_d, operands, t_window=t_window,
+                                       w_max=w_max)
+        else:
+            t_fire = fire_float_padded(w, xs_d, operands, t_window=t_window)
     else:
         xs_d = xs.to(device=dev, dtype=torch.float32).transpose(0, 1).contiguous()
         thr = torch.as_tensor(_floats(thresholds), dtype=torch.float32,

@@ -512,6 +512,125 @@ def test_fire_kernels_smem_bytes_equal_the_mirror(cuda_device, p, q, t):
             (p * q * r + 2 * p) * 4 + 8 * (t + 1) * 4)
         assert build.FIRE_BLOCK.smem_bytes(p, q, t, resident=r) == (
             (p * q * r + 8 * p) * 4 + 16 * (t + 1) * 4)
+        assert build.FIRE_FLOAT.smem_bytes(p, q, t, resident=r) == (
+            (16 * (t + 1) + q) * 8 + (p * q * r + 8 * p) * 4 + 16 * (t + 1) * 4)
+
+
+# ------------------------------------- the float-weight fire
+def _explore_bucket(encoder, seed=26):
+    """One envelope bucket of the exploration cell: the 12 WordSynonyms
+    candidates of one encoder (q 25/50 x t_max 32/64 x threshold scale
+    0.75/1/1.25) in a p x 50 envelope, t_window 64, N 900, as
+    ``simulator._sweep_bucket`` pads them (int32 volleys)."""
+    from repro_torch.core import simulator
+    from repro_torch.data import ucr
+
+    x = torch.as_tensor(ucr.load("WordSynonyms").x[:900], dtype=torch.float32)
+    p = 270 if encoder == "latency" else 540
+    cfgs = []
+    for q in (25, 50):
+        for t_max in (32, 64):
+            for scale in (0.75, 1.0, 1.25):
+                c = ColumnConfig(p=p, q=q, t_max=t_max)
+                cfgs.append(c.with_threshold(scale * simulator.suggest_threshold(c)))
+    xs = torch.stack([simulator._encode(x, c, encoder) for c in cfgs], 1)
+    rng = np.random.default_rng(seed)
+    w0 = np.zeros((12, p, 50), np.float32)
+    for j, c in enumerate(cfgs):
+        w0[j, :, : c.q] = rng.uniform(0, 7, (p, c.q))
+    return (torch.from_numpy(w0), xs.contiguous(),
+            [c.neuron.threshold for c in cfgs], [c.t_max for c in cfgs],
+            [c.q for c in cfgs])
+
+
+@pytest.mark.parametrize("encoder", ["latency", "onoff"])
+def test_fire_float_kernel_at_the_explore_envelopes(cuda_device, encoder):
+    """The exploration cell's two buckets (D 12 at 270 x 50 and 540 x 50,
+    T 64, N 900), trained on the card by the cell's float STDP
+    (stabiliser, mus 1/2, 1/2, 1/1024, 4 epochs): the kernel's times and
+    ids bit-equal to ``_fire_designs`` on the CPU; ``assign_padded``'s
+    reference lowering is one fire_float launch and no fire_block."""
+    w0, xs, th, tm, qa = _explore_bucket(encoder)
+    w = fused_column.fit_scan_padded(
+        w0.to(cuda_device), xs.to(cuda_device), th, tm, qa, t_window=64,
+        w_max=7, wta_k=1, mu_capture=0.5, mu_backoff=0.5, mu_search=1 / 1024,
+        stabilize=True, response="rnl", epochs=4, lowering="cuda", v_blk=32)
+    assert backend.assign_lowering("rnl", w) == "reference"
+    ops = fused_column.design_operands(th, tm, qa, 0.0, 0.0, 0.0)
+    xs_d = xs.transpose(0, 1).contiguous()
+    assert xs_d.dtype == torch.int32
+    before = build.FIRE_FLOAT.launches
+    got = fused_column.fire_float_padded(w, xs_d.to(cuda_device),
+                                         ops.to(cuda_device), t_window=64)
+    torch.cuda.synchronize()
+    assert build.FIRE_FLOAT.launches == before + 1
+    assert build.FIRE_FLOAT.resident("", xs.shape[2], 50, 64)
+    ref = fused_column.fire_float_padded_plain(w.cpu(), xs_d, ops, t_window=64)
+    assert torch.equal(got.cpu(), ref), (got.cpu() != ref).sum()
+    ids_ref = fused_column._ids_from_times(ref, ops[:, 1], ops[:, 2])
+    launches = (build.FIRE_FLOAT.launches, build.FIRE_BLOCK.launches)
+    ids = fused_column.assign_padded(w, xs.to(cuda_device), th, tm, qa,
+                                     t_window=64, response="rnl", w_max=7)
+    assert (build.FIRE_FLOAT.launches, build.FIRE_BLOCK.launches) == (
+        launches[0] + 1, launches[1])
+    assert torch.equal(ids.cpu(), ids_ref)
+    assert len(torch.unique(ids_ref)) > 25  # the designs cluster, not one id
+
+
+FLOAT_EDGES = np.float32([0.0, 1e-10, 2.0 ** -30, 0.99999994, 1.0, 3.0, 7.0,
+                          -2.5, np.inf, 0.5, 2.5, 2.0 ** -40 * (1 + 2.0 ** -20)])
+
+
+@pytest.mark.parametrize("kind", ["int", "half", "neg", "mixed"])
+@pytest.mark.parametrize("p,q", [(270, 50), (650, 130)], ids=["resident", "device_memory"])
+def test_fire_float_kernel_on_edge_weights(cuda_device, p, q, kind):
+    """Edge weights (0, 1e-10, 2^-30, 0.99999994, integers, a negative,
+    +inf, NaN in one neuron), half-grid weights under integer thresholds
+    that the potential reaches exactly, silent volleys, t_max < t_window
+    and q_active < q, in both layouts and on the four kinds of times (the
+    slope form, and the float64 ramp sum on f32 and negative times): times
+    and ids bit-equal to ``_fire_designs`` on the CPU."""
+    d, n = 4, 40
+    rng = np.random.default_rng(p + q + len(kind))
+    w = rng.choice(FLOAT_EDGES, (d, p, q)).astype(np.float32)
+    w[0, 7, 3] = np.nan
+    w[1] = _half_grid_weights(rng, (p, q))
+    w[3] = rng.uniform(0, 7, (p, q)).astype(np.float32)
+    xs = _volleys(rng, kind, (d, n, p), 64)
+    xs[:, :2] = 64  # silent volleys
+    ops = fused_column.design_operands(
+        [0.25 * p * 3.5, float(p), 0.0, 0.2 * p * 3.5], [64, 40, 33, 64],
+        [q, q - 3, 1, q], 0.0, 0.0, 0.0)
+    assert build.FIRE_FLOAT.resident("", p, q, 64) == (p == 270)
+    w, xs = torch.from_numpy(w), torch.from_numpy(xs)
+    ref = fused_column.fire_float_padded_plain(w, xs, ops, t_window=64)
+    before = build.FIRE_FLOAT.launches
+    got = fused_column.fire_float_padded(
+        w.to(cuda_device), xs.to(cuda_device), ops.to(cuda_device), t_window=64)
+    torch.cuda.synchronize()
+    assert build.FIRE_FLOAT.launches == before + 1
+    assert torch.equal(got.cpu(), ref), (got.cpu() != ref).sum()
+    assert torch.equal(fused_column._ids_from_times(got, ops[:, 1].to(cuda_device),
+                                                    ops[:, 2].to(cuda_device)).cpu(),
+                       fused_column._ids_from_times(ref, ops[:, 1], ops[:, 2]))
+    assert (ref[0, :, 3] == 0).all()  # the NaN neuron fires at once
+    assert (ref[1, :, q - 3:] == 40).all() and (ref[2, :, 1:] == 33).all()
+    assert 0 < float((ref[1] < 40).float().mean()) < 1
+
+
+def test_fire_float_refuses_bad_operands_on_the_card(cuda_device):
+    w = torch.zeros((1, 8, 2), device=cuda_device)
+    xs = torch.zeros((1, 4, 8), dtype=torch.int32, device=cuda_device)
+    ops = fused_column.design_operands([1.0], [8], [2], 0.0, 0.0, 0.0).to(cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_column.fire_float_padded(w, xs.cpu(), ops, t_window=8)
+    with pytest.raises(ValueError, match="float32 tensors"):
+        fused_column.fire_float_padded(w.double(), xs, ops, t_window=8)
+    with pytest.raises(ValueError, match="needs xs"):
+        fused_column.fire_float_padded(w, xs[:, :, :7].contiguous(), ops, t_window=8)
+    assert fused_column.fire_float_padded(w, xs[:, :0], ops, t_window=8).shape == (1, 0, 2)
+    got = fused_column.fire_float_padded(w, xs, ops, t_window=8)
+    assert torch.equal(got.cpu(), torch.full((1, 4, 2), 8.0))
 
 
 STDP_SHAPES = [(13, 3), (270, 25), (650, 130), (7, 1), (540, 50)]
@@ -853,7 +972,8 @@ def test_serving_on_card_matches_cpu_and_pins_launches(cuda_device):
     assert len(fits) == stats.refits and not builds
     assert launched["fire_block"] == stats.batches
     assert launched["fused_block"] == want
-    for name in ("fused_step", "rnl_fire", "stdp_update", "flash_attention"):
+    for name in ("fused_step", "rnl_fire", "fire_float", "stdp_update",
+                 "flash_attention"):
         assert launched[name] == 0, name
 
 

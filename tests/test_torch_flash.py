@@ -183,12 +183,21 @@ def _fire_block_smem(p, q, t_window, resident=True):
     return (p * q * resident + 8 * p) * 4 + 16 * (t_window + 1) * 4
 
 
+def _fire_float_smem(p, q, t_window, resident=True):
+    # csrc/fire_float.cu: tnn_fire_float_smem_bytes (the unrounded weights;
+    # a tile of 8 volleys; for each of the block's 16 warps a float64 row
+    # and an int row of t_window + 1; a float64 constant for each neuron)
+    return (16 * (t_window + 1) + q) * 8 + (p * q * resident + 8 * p) * 4 + (
+        16 * (t_window + 1) * 4)
+
+
 @pytest.fixture
 def smem_formulas(monkeypatch):
     for k, f in ((build.FUSED_STEP, _fused_step_smem),
                  (build.FUSED_BLOCK, _fused_block_smem),
                  (build.RNL_FIRE, _rnl_fire_smem),
-                 (build.FIRE_BLOCK, _fire_block_smem)):
+                 (build.FIRE_BLOCK, _fire_block_smem),
+                 (build.FIRE_FLOAT, _fire_float_smem)):
         monkeypatch.setattr(k, "smem_bytes", f)
 
 
@@ -198,23 +207,31 @@ def _layouts(p, q) -> dict:
         "fused_block": build.FUSED_BLOCK.resident("", p, q, 1, 64),
         "rnl_fire": build.RNL_FIRE.resident("", p, q, 64),
         "fire_block": build.FIRE_BLOCK.resident("", p, q, 64),
+        "fire_float": build.FIRE_FLOAT.resident("", p, q, 64),
     }
 
 
 @pytest.mark.parametrize("p,q,want", [
-    (270, 25, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
-    (540, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
+    (270, 25, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True,
+                   fire_float=True)),
+    (540, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True,
+                   fire_float=True)),
     # Lightning2 at q = 50: a fit needs 145,896 B for the weights, two
     # volleys and the histogram in fused_step, 143,348 B beside the
     # weights and the histogram in fused_block, while the fire kernels'
     # grid, tile and warp rows need 134,576 B (rnl_fire) and 151,944 B
-    # (fire_block)
-    (637, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True)),
-    (650, 130, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
+    # (fire_block), and fire_float's weights, tile and rows 160,664 B
+    (637, 50, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=True,
+                   fire_float=True)),
+    (650, 130, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False,
+                   fire_float=False)),
     # rnl_fire's tile of 2 volleys leaves room for a 4000 x 8 grid
-    (4000, 8, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=False)),
-    (4000, 16, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
-    (6000, 10, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False)),
+    (4000, 8, dict(fused_step=True, fused_block=True, rnl_fire=True, fire_block=False,
+                   fire_float=False)),
+    (4000, 16, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False,
+                   fire_float=False)),
+    (6000, 10, dict(fused_step=False, fused_block=False, rnl_fire=False, fire_block=False,
+                   fire_float=False)),
 ])
 def test_kernels_take_the_resident_layout_wherever_it_fits(smem_formulas, p, q, want):
     assert _layouts(p, q) == want
@@ -222,6 +239,8 @@ def test_kernels_take_the_resident_layout_wherever_it_fits(smem_formulas, p, q, 
     assert _fused_block_smem(637, 50, 1, 64) == 143_348
     assert _rnl_fire_smem(637, 50, 64) == 134_576
     assert _fire_block_smem(637, 50, 64) == 151_944
+    assert _fire_float_smem(637, 50, 64) == 160_664
+    assert _fire_float_smem(540, 50, 64) == 138_160  # the on/off envelope
 
 
 def test_device_layout_blocks_split_by_the_same_formula(smem_formulas):

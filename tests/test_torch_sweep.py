@@ -10,6 +10,7 @@ the kernels themselves are held against those on the card
 (``tests/test_torch_cuda_kernels.py``).
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -249,6 +250,176 @@ def test_float_assignment_matches_jax_at_word_synonyms_width():
             jnp.asarray(w[d].numpy()), xi, th[d], 64, tm[d]))(
                 jnp.asarray(xs[:, d].numpy()))
         np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
+
+
+# ------------------------------- the float-weight fire's slope form
+def _slope_twin(w, x, thr, t_max, q_active, t_window, ceil_step=False):
+    """A plain twin of ``csrc/fire_float.cu``'s slope form for one design:
+    w [p, q] f32, x [N, p] integer times >= 0 -> (times [N, q] f32,
+    potentials [N, q, t_end] float64).
+
+    A synapse with w > 0 rises by 1 on cycles x + 1 .. x + n - 1 (n =
+    ceil(w): +1 at x, -1 at x + n - 1 in an int difference row) and then
+    takes a final step of w - (n - 1) at cycle x + n (a float64 row);
+    w <= 0 or NaN is a constant.  ``ceil_step`` takes the ramp a full n
+    cycles and then the step w - n, the variant the kernel must not use.
+    """
+    w = np.asarray(w, np.float32)
+    p, q = w.shape
+    t_end = min(t_window, math.ceil(t_max))
+    base = np.where(w > 0, 0.0, w.astype(np.float64)).sum(0)  # [q]
+    times = np.empty((len(x), q), np.float32)
+    pots = np.empty((len(x), q, max(t_end, 0)))
+    for v, xv in enumerate(np.asarray(x)):
+        c = np.zeros((q, t_window + 2), np.int64)
+        f = np.zeros((q, t_window + 1))
+        for i in range(p):
+            xi = int(xv[i])
+            if xi >= t_end:
+                continue
+            for j in np.flatnonzero(w[i] > 0):
+                g = w[i, j]
+                if g > t_end - xi:  # tops out at or past the window's end
+                    c[j, xi] += 1
+                    continue
+                n1 = math.ceil(g) - 1
+                if ceil_step:
+                    c[j, xi] += 1
+                    c[j, xi + n1 + 1] -= 1
+                    f[j, xi + n1] += np.float64(g) - (n1 + 1)
+                else:
+                    c[j, xi] += 1
+                    c[j, xi + n1] -= 1
+                    f[j, xi + n1] += np.float64(g) - n1
+        slope = np.cumsum(c[:, :t_end], axis=1)
+        rises = np.concatenate([np.zeros((q, 1), np.int64),
+                                np.cumsum(slope, axis=1)[:, :-1]], axis=1)
+        steps = np.concatenate([np.zeros((q, 1)),
+                                np.cumsum(f[:, :t_end], axis=1)[:, :-1]], axis=1)
+        pot = rises[:, :t_end] + steps[:, :t_end] + base[:, None]
+        fired = ~(pot < np.float64(np.float32(thr)))
+        t = np.where(fired.any(1), fired.argmax(1), t_end)
+        t = np.minimum(t, int(np.float32(t_max))).astype(np.float32)
+        times[v] = np.where(np.arange(q) < q_active, t, np.float32(t_max))
+        pots[v] = pot
+    return times, pots
+
+
+# every edge of the slope form: tiny weights, the largest f32 below 1,
+# integers, zeros, a negative, +inf, NaN
+TINY = np.float32(2.0 ** -40 * (1 + 2.0 ** -20))
+EDGE_WEIGHTS = np.float32([0.0, 1e-10, 2.0 ** -30, 0.99999994, 1.0, 3.0,
+                           7.0, -2.5, np.inf, 0.5, 2.5, TINY])
+
+
+def _edge_designs(seed=11, p=24, q=8, t_window=24, n=30):
+    """Four designs of one envelope: edge weights in every column (NaN in
+    one neuron of design 0), half-grid weights whose integer threshold the
+    potential reaches exactly, t_max < t_window, q_active < q, and silent
+    volleys."""
+    rng = np.random.default_rng(seed)
+    w = rng.choice(EDGE_WEIGHTS, (4, p, q)).astype(np.float32)
+    w[0, 3, 5] = np.nan
+    w[2] = rng.integers(0, 15, (p, q)).astype(np.float32) / 2  # ties
+    w[3] = rng.uniform(0, 7, (p, q)).astype(np.float32)
+    xs = rng.integers(0, t_window + 4, (4, n, p)).astype(np.int32)
+    xs[:, :3] = t_window  # silent volleys
+    xs[1, 3:6] = 16  # silent at design 1's t_max
+    th = np.float32([3.0, 2.5, 6.0, 20.25])
+    tm = np.float32([24, 16, 24, 20])
+    qa = np.float32([8, 5, 8, 7])
+    return w, xs, th, tm, qa, t_window
+
+
+def test_slope_form_twin_equals_fire_designs_on_edge_weights():
+    """The kernel's decomposition (integer rises plus one final step of
+    w - (ceil(w) - 1), a constant for w <= 0 or NaN), written plainly here,
+    gives ``_fire_designs``' times bit for bit on the edge weights, at
+    exact threshold ties, on silent volleys, with t_max < t_window and
+    q_active < q."""
+    w, xs, th, tm, qa, t_window = _edge_designs()
+    ops = fused_column.design_operands(th, tm, qa, 0.0, 0.0, 0.0)
+    want = fused_column.fire_float_padded_plain(
+        torch.from_numpy(w), torch.from_numpy(xs), ops, t_window=t_window)
+    ties = 0
+    for d in range(4):
+        got, pots = _slope_twin(w[d], xs[d], th[d], tm[d], qa[d], t_window)
+        np.testing.assert_array_equal(got, want[d].numpy())
+        ties += int((pots == np.float64(th[d])).sum())
+    assert ties > 0  # a potential reaches a threshold exactly
+    assert (want[0, :, 5] == 0).all()  # the NaN neuron fires at once
+    assert (want[1, :, 5:] == 16).all() and (want[1:, :3] == tm[1:, None, None]).all()
+
+
+def test_the_ceil_step_variant_differs_on_a_tiny_weight():
+    """w - ceil(w) rounds in float64 for a tiny w where the plain sum adds
+    w exactly: on one live synapse whose threshold is its own weight, the
+    twin with the kernel's step fires the cycle after the spike, as
+    ``_fire_designs`` does, and the w - ceil(w) variant never fires."""
+    w = np.zeros((4, 1), np.float32)
+    w[1, 0] = TINY
+    x = np.int32([[9, 3, 9, 9]])
+    kw = dict(thr=TINY, t_max=8.0, q_active=1, t_window=8)
+    want = fused_column.fire_float_padded_plain(
+        torch.from_numpy(w[None]), torch.from_numpy(x[None]),
+        fused_column.design_operands([TINY], [8], [1], 0.0, 0.0, 0.0),
+        t_window=8)
+    good, pots = _slope_twin(w, x, **kw)
+    bad, bad_pots = _slope_twin(w, x, ceil_step=True, **kw)
+    assert float(want[0, 0, 0]) == good[0, 0] == 4.0
+    assert bad[0, 0] == 8.0 and bad_pots[0, 0, 4] < pots[0, 0, 4] == TINY
+    w[1, 0] = np.float32(1e-10)  # the potential differs at 1e-10 too
+    assert _slope_twin(w, x, ceil_step=True, **kw)[1][0, 0, 4] != np.float64(w[1, 0])
+    assert _slope_twin(w, x, **kw)[1][0, 0, 4] == np.float64(w[1, 0])
+
+
+def test_fire_float_wrapper_refuses_bad_operands_before_any_launch():
+    """Shapes, dtypes, contiguity and the device are checked before the
+    kernel is built or launched; CPU tensors take the plain version."""
+    k = build.FIRE_FLOAT
+    before = (k.launches, k.builds)
+    w = torch.zeros((2, 8, 3), device="meta")
+    xs = torch.zeros((2, 5, 8), dtype=torch.int32, device="meta")
+    ops = torch.zeros((2, fused_column.N_OPERANDS), device="meta")
+    fire = fused_column.fire_float_padded
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fire(w, xs, ops, t_window=16)
+    wc, xc, oc = (torch.zeros(t.shape, dtype=t.dtype) for t in (w, xs, ops))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fire(wc, xs, oc, t_window=16)
+    with pytest.raises(ValueError, match="float32 tensors"):
+        fire(w.double(), xs, ops, t_window=16)
+    with pytest.raises(ValueError, match="int32 or float32 times"):
+        fire(w, xs.long(), ops, t_window=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fire(w, torch.zeros((2, 8, 5), dtype=torch.int32,
+                            device="meta").transpose(1, 2), ops, t_window=16)
+    with pytest.raises(ValueError, match="needs xs"):
+        fire(w, xs.transpose(1, 2), ops, t_window=16)
+    with pytest.raises(ValueError, match="operands"):
+        fire(w, xs, ops[:, :5], t_window=16)
+    with pytest.raises(ValueError, match=r"needs w \[D, p, q\]"):
+        fire(w[0], xs, ops, t_window=16)
+    assert (k.launches, k.builds) == before
+    assert torch.equal(fire(wc, xc, oc, t_window=16),
+                       fused_column.fire_float_padded_plain(wc, xc, oc, t_window=16))
+    assert (k.launches, k.builds) == before
+
+
+@pytest.mark.parametrize("response", ["rnl", "snl"])
+def test_float_assignment_on_cpu_tensors_runs_fire_designs(monkeypatch, response):
+    """On CPU tensors, and for SNL, the reference assignment runs the
+    plain ``_fire_designs``, never the float-weight kernel's wrapper."""
+    calls = []
+    orig = fused_column._fire_designs
+    monkeypatch.setattr(fused_column, "_fire_designs",
+                        lambda *a: calls.append(a[-1]) or orig(*a))
+    monkeypatch.setattr(fused_column, "fire_float_padded", None)
+    w, xs, th, tm, qa, t_window = padded_batch(seed=4, n=9, grid=False)
+    ids = fused_column.assign_padded(torch.from_numpy(w), torch.from_numpy(xs),
+                                     th, tm, qa, t_window=t_window,
+                                     response=response)
+    assert calls == [response] and ids.shape == (3, 9)
 
 
 def test_fire_block_plain_matches_jax_fire_and_masks():
