@@ -3,7 +3,10 @@
 
 Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced CPU-testable config), as in the JAX package, for
-all ten of its ids.  ``SHAPES`` is the dry run's table of input shapes
+all ten of its ids (``ARCH_IDS``).  ``PORT_ONLY`` holds the ids the
+JAX package has no twin of (``zamba2-7b-instruct``, Zamba2 as published);
+``get_arch`` resolves both, and the tests that walk ``ARCH_IDS`` against
+the JAX registry never meet them.  ``SHAPES`` is the dry run's table of input shapes
 and ``input_specs`` builds the ``meta`` stand-ins each (arch x shape)
 cell runs against (``launch/dryrun.py``).
 """
@@ -25,6 +28,7 @@ from repro_torch.configs import (
     starcoder2_15b,
     whisper_medium,
     zamba2_7b,
+    zamba2_7b_instruct,
 )
 from repro_torch.models.config import ArchConfig
 
@@ -43,12 +47,13 @@ _MODULES = (
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)
+PORT_ONLY = {m.ARCH_ID: m for m in (zamba2_7b_instruct,)}
 
 
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
-    if arch_id not in REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    mod = REGISTRY[arch_id]
+    mod = REGISTRY.get(arch_id) or PORT_ONLY.get(arch_id)
+    if mod is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS + tuple(PORT_ONLY)}")
     return mod.smoke() if smoke else mod.full()
 
 
@@ -73,7 +78,7 @@ SHAPES = {
 # long_500k needs sub-quadratic attention: run only for SSM/hybrid (their
 # attention state is O(1) / sharded-KV); skip for the 8 pure full-attention
 # archs.
-_LONG_OK_FAMILIES = ("ssm", "hybrid")
+_LONG_OK_FAMILIES = ("ssm", "hybrid", "zamba2")
 
 
 def applicable(cfg: ArchConfig, shape: str) -> bool:

@@ -89,14 +89,14 @@ __device__ __forceinline__ float4 load4(const float* p) {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
-// Rows [row0, row0 + 64) of one head of a [B, S, H, D] tensor into a
-// shared f32 tile of row stride `ld`, times `scale`; rows at or past `rows`
-// are zero.
+// Rows [row0, row0 + 64) of one head of a [B, R, H, D] tensor (R = `stride`
+// rows a batch entry) into a shared f32 tile of row stride `ld`, times
+// `scale`; rows at or past `rows` are zero.
 template <int D, typename T>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ x, int b,
-                                           int rows, int heads, int h,
-                                           int row0, float scale, float* dst,
-                                           int ld) {
+                                           int rows, int stride, int heads,
+                                           int h, int row0, float scale,
+                                           float* dst, int ld) {
   constexpr int kChunks = D / 4;
   for (int c = threadIdx.x; c < kBQ * kChunks; c += kThreads) {
     const int r = c / kChunks;
@@ -104,7 +104,7 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ x, int b,
     const int row = row0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < rows) {
-      v = load4(x + ((static_cast<size_t>(b) * rows + row) * heads + h) * D +
+      v = load4(x + ((static_cast<size_t>(b) * stride + row) * heads + h) * D +
                 k4);
       v.x *= scale;
       v.y *= scale;
@@ -145,8 +145,10 @@ __host__ __device__ constexpr size_t smem_bytes() {
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int sq, int skv, int hq,
-    int hkv, bool causal, float scale) {
+    const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
+    const int* __restrict__ skv_dev, int kv_rows, int hq, int hkv, bool causal,
+    float scale) {
+  if (skv_dev != nullptr) skv = *skv_dev;
   constexpr int kLd = qk_stride<D>();
   constexpr int kCols = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];  // 16-byte aligned for float4 access
@@ -163,7 +165,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  stage_tile<D>(q, b, sq, hq, h, q0, scale, qs, kLd);
+  stage_tile<D>(q, b, sq, sq, hq, h, q0, scale, qs, kLd);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -183,8 +185,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's p and v are no longer read
-    stage_tile<D>(k, b, skv, hkv, hk, k0, 1.f, ks, kLd);
-    stage_tile<D>(v, b, skv, hkv, hk, k0, 1.f, vs, D);
+    stage_tile<D>(k, b, skv, kv_rows, hkv, hk, k0, 1.f, ks, kLd);
+    stage_tile<D>(v, b, skv, kv_rows, hkv, hk, k0, 1.f, vs, D);
     __syncthreads();
 
     // scores: s[i][j] = q[ty + 16 i] . k[tx + 16 j]
@@ -289,8 +291,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int hq, int hkv, bool causal, float scale,
-           cudaStream_t stream) {
+           int sq, int skv, const int* skv_dev, int kv_rows, int hq, int hkv,
+           bool causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -299,8 +301,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, hq, hkv,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, skv_dev,
+      kv_rows, hq, hkv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,12 +312,14 @@ namespace tc {
 
 constexpr int kBQ = 128;         // query rows per block
 constexpr int kBK = 64;          // keys per tile
-constexpr int kStages = 4;       // depth of the K/V ring
 constexpr int kConsumers = 256;  // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 
 template <int D>
 struct Shape {
+  // depth of the K/V ring: four stages, two at D 256 (four would need
+  // 257 KB of shared memory, over the 227 KB a block may use)
+  static constexpr int kStages = D > 128 ? 2 : 4;
   static constexpr int kCol = D < 64 ? D : 64;  // columns of a swizzled row
   static constexpr int kRow = 2 * kCol;  // its bytes: 32, 64 or 128, the
                                          // swizzle span
@@ -327,6 +331,7 @@ struct Shape {
   // 1024: the alignment slack of the swizzled tiles; then the mbarriers
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kTileBytes + (1 + 2 * kStages) * 8;
+  static_assert(kSmem <= 232448, "a block may use 227 KB of shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -537,14 +542,76 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256], A in registers (four bf16x2
+// per thread, the accumulator's fragment order), B MN-major in shared
+// memory (transposed: tnspB = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The tile's head dim for a stored head dim DS: 112 runs in the D = 128
-// tiles (see the header).
+// tiles, 224 in the D = 256 ones (see the header).
 template <int DS>
-constexpr int tile_dim() { return DS == 112 ? 128 : DS; }
+constexpr int tile_dim() { return DS == 112 ? 128 : DS == 224 ? 256 : DS; }
 
 // Accumulator fragment of wgmma m64nN (f32), thread l of warp w of the
 // warpgroup: element i sits at row 16 w + l / 4 + 8 ((i / 2) % 2) and
@@ -557,16 +624,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-    int sq, int skv, int hq, int hkv, bool causal, float scale) {
+    int sq, int skv, const int* __restrict__ skv_dev, int hq, int hkv,
+    bool causal, float scale) {
+  if (skv_dev != nullptr) skv = *skv_dev;
   using S = Shape<D>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle repeats every 1024 bytes of shared address: align to it
   uint8_t* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* ks = qs + S::kQBytes;              // [kStages] K tiles
-  uint8_t* vs = ks + kStages * S::kTileBytes;  // [kStages] V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * S::kTileBytes);
-  uint64_t* full = q_full + 1;     // [kStages] the stage has landed
-  uint64_t* empty = full + kStages;  // [kStages] the stage is read
+  uint8_t* ks = qs + S::kQBytes;              // [S::kStages] K tiles
+  uint8_t* vs = ks + S::kStages * S::kTileBytes;  // [S::kStages] V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S::kStages * S::kTileBytes);
+  uint64_t* full = q_full + 1;     // [S::kStages] the stage has landed
+  uint64_t* empty = full + S::kStages;  // [S::kStages] the stage is read
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // late (heavy) tiles first
   const int h = blockIdx.y;
@@ -579,7 +648,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 32);  // one arrival per warp
     }
@@ -595,8 +664,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
         tma_load(qs + c * kBQ * S::kRow, &tm_q, q_full, c * S::kCol, h, q0,
                  b);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        const int s = t % S::kStages;
+        mbar_wait(&empty[s], ((t / S::kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * S::kTileBytes);
         for (int c = 0; c < S::kChunks; ++c) {
           const int off = s * S::kTileBytes + c * kBK * S::kRow;
@@ -626,21 +695,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
 
   mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
+    const int s = t % S::kStages;
     const int k0 = t * kBK;
     // Every consumer waits for every tile, the ones it skips too: a
     // warpgroup that arrived on `empty` ahead of the loads would complete
     // a stage's next phase before the other warpgroup has read it.
-    mbar_wait(&full[s], (t / kStages) & 1);
+    mbar_wait(&full[s], (t / S::kStages) & 1);
     // uniform over the warpgroup, as wgmma needs
     if (first <= last && (!causal || k0 <= last)) {
-      // S = Q K^T over D / 16 k16 steps
+      // S = Q K^T over DS / 16 k16 steps (the columns past DS are zeros)
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DS / 16; ++kk) {
         const int c = kk * 16 / S::kCol;
         const int off = (kk * 16 % S::kCol) * 2;
         wgmma_ss(sc,
@@ -794,10 +863,11 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
 }
 
 // DS: the tensors' head dim; the kernel runs in tiles of tile_dim<DS>().
+// K and V are the leading skv of kv_rows rows a batch entry.
 template <int DS>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int hq, int hkv, bool causal, float scale,
-           cudaStream_t stream) {
+           int sq, int skv, const int* skv_dev, int kv_rows, int hq, int hkv,
+           bool causal, float scale, cudaStream_t stream) {
   constexpr int D = tile_dim<DS>();
   if (skv == 0)  // no key: acc / max(l, 1e-30) is 0
     return static_cast<int>(cudaMemsetAsync(
@@ -806,8 +876,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
   if (!encode<D, DS>(fn, &tq, q, b, sq, hq, kBQ) ||
-      !encode<D, DS>(fn, &tk, k, b, skv, hkv, kBK) ||
-      !encode<D, DS>(fn, &tv, v, b, skv, hkv, kBK))
+      !encode<D, DS>(fn, &tk, k, b, kv_rows, hkv, kBK) ||
+      !encode<D, DS>(fn, &tv, v, b, kv_rows, hkv, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Shape<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -816,8 +886,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_kernel<D, DS><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, hq, hkv, causal,
-      scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, skv_dev, hq, hkv,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -839,6 +909,8 @@ int by_head_dim(int d, F&& f) {
       return f(std::integral_constant<int, 112>());
     case 128:
       return f(std::integral_constant<int, 128>());
+    case 224:
+      return f(std::integral_constant<int, 224>());
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -846,12 +918,17 @@ int by_head_dim(int d, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  d in {16, 32, 64, 112, 128}; hq a multiple of
-// hkv; sq >= 1; q, k, v 16-byte aligned.  Launches on `stream`; returns
+// dtype: 0 float32, 1 bfloat16.  d in {16, 32, 64, 112, 128, 224}; hq a
+// multiple of hkv; sq >= 1; q, k, v 16-byte aligned; K and V the leading
+// skv of kv_rows >= skv rows a batch entry.  With `skv_dev` non-null the
+// kernel reads skv from that device int instead (1 <= *skv_dev <= kv_rows;
+// a decode step under a CUDA graph: the filled rows of its cache), and
+// `skv` is only the host's bound.  Launches on `stream`; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported d or dtype, or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int b, int sq, int skv, int hq,
+                               void* out, int b, int sq, int skv,
+                               const int* skv_dev, int kv_rows, int hq,
                                int hkv, int d, int causal, int dtype,
                                float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -859,12 +936,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return by_head_dim(d, [&](auto dim) {
       return simt::launch<decltype(dim)::value, float>(
-          q, k, v, out, b, sq, skv, hq, hkv, c, scale, st);
+          q, k, v, out, b, sq, skv, skv_dev, kv_rows, hq, hkv, c, scale, st);
     });
   if (dtype == 1)
     return by_head_dim(d, [&](auto dim) {
-      return tc::launch<decltype(dim)::value>(q, k, v, out, b, sq, skv, hq,
-                                              hkv, c, scale, st);
+      return tc::launch<decltype(dim)::value>(q, k, v, out, b, sq, skv,
+                                              skv_dev, kv_rows, hq, hkv, c,
+                                              scale, st);
     });
   return static_cast<int>(cudaErrorInvalidValue);
 }

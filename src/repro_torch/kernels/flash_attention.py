@@ -19,13 +19,17 @@ two bf16 parts for the PV product, so they keep about f32 accuracy, as the
 TPU kernel's f32 probabilities do; f32 runs both products in f32 on the
 CUDA cores.  Head dim 112 runs the bf16 kernel's D = 128 tiles on tensor
 maps whose inner extent is 112 (TMA reads the missing columns as zeros; no
-padded copy).  The plain version is the LM's own ``layers.chunked_attention``
+padded copy); head dim 224 (Zamba2's shared blocks) the D = 256 tiles on
+tensor maps of inner extent 224, two stages of K and V.  K and V may be the
+leading rows of a larger cache (a decode step's attention over the
+filled positions).  The plain version is the LM's own ``layers.chunked_attention``
 on the grouped view.  In bf16 that rounds the probabilities to bf16 before
 the PV product, as the JAX model's attention does.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -33,7 +37,7 @@ from repro_torch.kernels import build
 from repro_torch.models import layers
 
 # head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 224)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -45,18 +49,32 @@ def flash_attention_plain(
     *,
     kv_chunk: int = 1024,
     bf16_scores: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``layers.chunked_attention`` on the grouped
     view.  q [B, Sq, Hq, d], k/v [B, Skv, Hkv, d] -> [B, Sq, Hq, d]."""
     b, sq, hq, d = q.shape
     out = layers.chunked_attention(
         layers._merge_gqa(q, k.shape[2]), k, v, causal=causal,
-        kv_chunk=kv_chunk, bf16_scores=bf16_scores,
+        kv_chunk=kv_chunk, bf16_scores=bf16_scores, scale=scale,
     )
     return out.reshape(b, sq, hq, d)
 
 
-def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _kv_rows(t: torch.Tensor) -> int:
+    """Rows of the [B, R, H, d] buffer whose leading rows ``t`` [B, S, H, d]
+    is (``buf[:, :S]``, a decode step's cache), or 0 where ``t`` is laid
+    out otherwise."""
+    b, s, h, d = t.shape
+    if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) != h * d:
+        return 0
+    rows, rem = divmod(t.stride(0), h * d) if b > 1 else (s, 0)
+    return rows if not rem and rows >= s else 0
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Raise unless the kernel takes these tensors; return the rows of
+    K's and V's buffer."""
     tensors = (q, k, v)
     dev = q.device
     if not all(t.is_cuda and t.device == dev for t in tensors):
@@ -84,16 +102,29 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError("flash_attention needs contiguous, 16-byte aligned "
-                         "q, k and v")
+    rows = _kv_rows(k)
+    if (not q.is_contiguous() or not rows or _kv_rows(v) != rows
+            or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError("flash_attention needs a contiguous q and k, v each "
+                         "contiguous or the leading rows of a contiguous "
+                         "[B, R, Hkv, d] buffer, 16-byte aligned")
+    return rows
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    scale: Optional[float] = None, kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of q [B, Sq, Hq, d] over k, v [B, Skv, Hkv, d] ->
-    [B, Sq, Hq, d] in q's dtype (float32 or bfloat16).
+    [B, Sq, Hq, d] in q's dtype (float32 or bfloat16), scores scaled by
+    ``scale`` (default 1/sqrt(d)).  k and v may be the leading Skv rows of
+    a contiguous [B, R, Hkv, d] cache (``cache[:, :n]``): the kernel reads
+    them where they lie (the bf16 kernel's last key tile reads rows past
+    Skv, masked: they must hold finite values, as a zeroed cache does).
+    ``kv_len``, a one-element int32 tensor on q's device, gives the number
+    of key rows to attend instead (1 <= kv_len <= Skv), read by the kernel
+    itself: a decode step captured in a CUDA graph attends its cache's
+    filled rows without a host-side length.
 
     CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
     kernel, or raise.  The kernel has no backward: under autograd (grad
@@ -108,8 +139,14 @@ def flash_attention(
             "under torch.no_grad() / torch.inference_mode()"
         )
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal)
-    _check_cuda(q, k, v)
+        if kv_len is not None:
+            n = int(kv_len.reshape(-1)[0])
+            k, v = k[:, :n], v[:, :n]
+        return flash_attention_plain(q, k, v, causal, scale=scale)
+    kv_rows = _check_cuda(q, k, v)
+    if kv_len is not None and (kv_len.device != q.device or kv_len.dtype != torch.int32
+                               or kv_len.numel() != 1):
+        raise ValueError("flash_attention: kv_len must be one int32 on q's device")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -121,7 +158,8 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         kern.launches += 1
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                sq, skv, hq, hkv, d, int(bool(causal)), _DTYPES[q.dtype],
-                1.0 / math.sqrt(d), stream)
+                sq, skv, build.ptr(kv_len), kv_rows, hq, hkv, d, int(bool(causal)),
+                _DTYPES[q.dtype], 1.0 / math.sqrt(d) if scale is None else float(scale),
+                stream)
     build.check_launch(kern, rc)
     return out

@@ -9,10 +9,24 @@ Port of the JAX package's ``launch/serve.py``, every arch id: the same
 flags and ``[serve]`` lines, plus ``--device`` (``cuda`` unless asked
 otherwise; without a card it raises and never carries on on the CPU).
 Weights are random, drawn on the device from a seeded ``torch.Generator``,
-and so are the prompts; the audio family's frame embeddings are zeros in
-the model's dtype, as in the JAX package.  On the card every attention of
-a prefill (and whisper's cross-attention of each decode step) runs the
-flash kernel; each decode step is one token per request.
+and so are the prompts unless the caller passes its own (``serve(...,
+prompts=, model=)``: a benchmark's token ids and loaded weights); the audio
+family's frame embeddings are zeros in the model's dtype, as in the JAX
+package.  On the card every attention of a prefill (and whisper's
+cross-attention of each decode step, and the published Zamba2's decode
+attention over its cache) runs the flash kernel; each decode step is one
+token per request.  The published Zamba2's decode step (``T.decode_step``
+at a device position) runs on the card as one CUDA graph
+(``models/zamba2.py``'s ``DecodeGraph``) over a cache the model keeps with
+it, captured at the first batch of a shape and replaced by a batch of
+another (span ``lm.decode_graph``: the capture, or the next batch's reset
+of the cache; timed in neither phase).
+
+Traced (``repro_torch.obs`` on): spans ``lm.prefill`` (batch, prompt
+length; it ends at the first token's copy to the host) and
+``lm.decode_step`` (step; it ends at the step's token copy), counters
+``lm.tokens_prefilled`` and ``lm.tokens_decoded``.  Under the decode graph
+the spans inside a step (``lm.shared_block``) are not recorded.
 """
 from __future__ import annotations
 
@@ -20,14 +34,16 @@ import argparse
 import dataclasses
 import sys
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.core.backend import default_device
 from repro_torch.models import transformer as T
+from repro_torch.models import zamba2 as zamba2_lib
 from repro_torch.models.config import ArchConfig
 
 
@@ -43,6 +59,12 @@ class ServeResult:
     generations: np.ndarray  # [B, tokens] greedy tokens
     prefill_logits: torch.Tensor  # [B, S, V_padded] at every prompt position
     last_logits: torch.Tensor  # [B, 1, V_padded] of the last step
+    # [len(keep), tokens - 1, V_padded]: each decode step's logits of the
+    # rows ``serve`` was asked to keep (None where none were)
+    step_logits: Optional[torch.Tensor] = None
+    # those rows of every tensor of the cache after the last step (each
+    # cache tensor holds the batch on its axis 1), in ``keep``'s order
+    kept_cache: Optional[dict] = None
 
     @property
     def decode_s_per_token(self) -> float:
@@ -52,43 +74,73 @@ class ServeResult:
 def serve(
     cfg: ArchConfig,
     *,
-    batch: int,
-    prompt_len: int,
+    batch: int = 0,
+    prompt_len: int = 0,
     tokens: int,
     device=None,
     seed: int = 0,
     model: Optional[T.Transformer] = None,
     frames: Optional[torch.Tensor] = None,
+    prompts: Optional[torch.Tensor] = None,
+    keep: Optional[Sequence[int]] = None,
 ) -> ServeResult:
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    ``tokens - 1`` greedy decode steps, under ``torch.inference_mode()``.
-    ``model`` defaults to random weights from ``seed`` on ``device``; the
-    audio family's ``frames`` [batch, enc_seq, d_model] default to zeros."""
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then ``tokens -
+    1`` greedy decode steps, under ``torch.inference_mode()``.  ``prompts``
+    [batch, prompt_len] (token ids on the device) default to random ones
+    from ``seed``; ``model`` defaults to random weights from ``seed`` on
+    ``device``; the audio family's ``frames`` [batch, enc_seq, d_model]
+    default to zeros.  ``keep``: rows whose every decode step's logits and
+    final cache are kept (``step_logits``, ``kept_cache``)."""
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
         if model is None:
             model = T.init_params(cfg, generator=gen, device=dev)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                                generator=gen, device=dev)
+        if prompts is None:
+            prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                    generator=gen, device=dev)
+        batch, prompt_len = prompts.shape
         if cfg.family == "audio" and frames is None:
             frames = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
                                  dtype=model.embed.dtype, device=dev)
+        rows = None if keep is None else torch.as_tensor(list(keep), device=dev)
+        kept = []
         max_len = prompt_len + tokens + 1
+        cache = graph = None
+        if cfg.family == "zamba2" and dev.type == "cuda":
+            # the published Zamba2's decode step runs as one CUDA graph over
+            # the cache the model keeps with it (captured at the first batch
+            # of this shape)
+            with obs.span("lm.decode_graph"):
+                graph = zamba2_lib.decode_graph(model, batch, max_len)
+                cache = graph.cache
         t0 = time.perf_counter()
-        cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames)
-        tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
-        out = [tok.cpu().numpy()]
+        with obs.span("lm.prefill", (batch, prompt_len) if obs.ON else ()):
+            cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames,
+                                      cache=cache)
+            tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
+            out = [tok.cpu().numpy()]
+        obs.count("lm.tokens_prefilled", batch * prompt_len)
         t_prefill = time.perf_counter() - t0
         prefill_logits = logits
         t0 = time.perf_counter()
-        for _ in range(tokens - 1):
-            cache, logits = T.decode_step(model, cache, tok)
-            tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
-            out.append(tok.cpu().numpy())
+        for step in range(tokens - 1):
+            with obs.span("lm.decode_step", (step,) if obs.ON else ()):
+                if graph is not None:
+                    logits = graph.step(tok, prompt_len + step)
+                else:
+                    cache, logits = T.decode_step(model, cache, tok)
+                tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
+                if rows is not None:
+                    kept.append(logits[rows, -1])
+                out.append(tok.cpu().numpy())
+            obs.count("lm.tokens_decoded", batch)
         t_decode = time.perf_counter() - t0
-    return ServeResult(cfg, str(dev), t_prefill, t_decode,
-                       np.concatenate(out, axis=1), prefill_logits, logits)
+        kept_cache = None if rows is None else {
+            k: v.index_select(1, rows) for k, v in cache.items() if torch.is_tensor(v)}
+    step_logits = torch.stack(kept, dim=1) if kept else None
+    return ServeResult(cfg, str(dev), t_prefill, t_decode, np.concatenate(out, axis=1),
+                       prefill_logits, logits, step_logits, kept_cache)
 
 
 def main(argv=None) -> int:

@@ -17,7 +17,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'audio' | 'vlm'
+    family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'audio' | 'vlm' | 'zamba2'
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,6 +69,20 @@ class ArchConfig:
     # vocab is padded to this multiple so the vocab dim shards cleanly over
     # the model axis (Megatron-style); loss masks the padded logit columns.
     vocab_pad_to: int = 256
+
+    # Knobs of the SSM block, the final norm and the head that the
+    # published Zamba2 (``Zamba2Config`` below, family 'zamba2') sets as
+    # fields; here they are class attributes, not fields, so every other
+    # config keeps its fields, its ``asdict`` and its numerics.
+    ssm_groups = 1  # groups of the SSM's B and C
+    conv_bias = False  # the SSM conv's bias
+    dt_min = 0.0  # softplus(dt) clamped below (0: not clamped)
+    # the SSM's output norm: 'rmsnorm' (y * silu(z) in the model's dtype,
+    # then RMSNorm, the JAX package's) or 'grouped' (norm(y * silu(z)) in
+    # f32 over ssm_groups groups, ``Zamba2RMSNormGated``)
+    ssm_norm = "rmsnorm"
+    norm_eps = 1e-6  # the final norm's
+    tie_embeddings = False
 
     def __post_init__(self):
         if self.d_head is None and self.n_heads:
@@ -147,3 +161,65 @@ class ArchConfig:
     def model_flops_per_token(self) -> float:
         """6 * N(_active) — the §Roofline MODEL_FLOPS convention."""
         return 6.0 * self.active_param_count()
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ArchConfig):
+    """Zamba2 as published (``transformers``' ``Zamba2ForCausalLM``,
+    arXiv:2411.15242), beside the JAX package's simplified ``zamba2-7b``.
+
+    Mamba2 layers with ``ssm_groups`` groups of B and C, a conv with bias
+    and a grouped gated RMSNorm; ``num_mem_blocks`` shared attention + MLP
+    blocks, used in turn at ``hybrid_layer_ids``.  A shared block reads
+    concat[h, x0] (width 2 d_model, x0 the token embeddings), attends with
+    head dim ``d_head`` = 2 d_model / n_heads over it (scores scaled by
+    (d_head / 2)^-1/2, RoPE over the whole head, halves rotated), maps back
+    to d_model, and runs a gated-GELU MLP whose gate_up has a rank
+    ``adapter_rank`` adapter per application.  Each application's own
+    Linear(d_model, d_model) of the block's output is added to the input
+    of the mamba layer at that id only.  ``dt_min`` clamps softplus(dt)
+    from below (``time_step_min``, as ``Zamba2MambaMixer.torch_forward``);
+    ``time_step_max`` and ``time_step_floor`` only shape the init of
+    dt_bias.  Embeddings tied.  The family is 'zamba2': the model code
+    dispatches on it.
+    """
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+    ssm_groups: int = 2
+    conv_bias: bool = True
+    mlp_act: str = "gelu"
+    norm_eps: float = 1e-5
+    dt_min: float = 1e-3
+    time_step_max: float = 0.1
+    time_step_floor: float = 1e-4
+    max_position: int = 4096
+    tie_embeddings: bool = True
+    ssm_norm: str = "grouped"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "zamba2":
+            raise ValueError(f"a Zamba2Config is of family 'zamba2', not {self.family!r}")
+
+    @property
+    def n_apps(self) -> int:
+        return len(self.hybrid_layer_ids)
+
+    def param_count(self) -> int:
+        """Parameters as published: tied embedding, 81 mamba layers, the
+        shared blocks, the per-application adapters and linears."""
+        D, Di, F, G = self.d_model, self.d_inner, self.d_ff, self.ssm_groups
+        N, H, r = self.ssm_state, self.ssm_heads, self.adapter_rank
+        conv = Di + 2 * G * N
+        mamba = (D * (Di + conv + H) + conv * (4 + int(self.conv_bias)) + 3 * H
+                 + Di + Di * D + D)
+        A = 2 * D
+        shared = (A * 3 * self.n_heads * self.d_head + self.n_heads * self.d_head * D
+                  + D * 2 * F + F * D + A + D)
+        apps = self.n_apps * (D * r + r * 2 * F + D * D)
+        return (self.vocab_size * D + self.n_layers * mamba + self.num_mem_blocks * shared
+                + apps + D)
+
+    def active_param_count(self) -> int:
+        return self.param_count()

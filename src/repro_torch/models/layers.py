@@ -94,6 +94,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
+def rope_half_tables(positions: torch.Tensor, d: int, theta: float,
+                     dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin [B, S, 1, d/2] of the halves-rotated RoPE at
+    ``positions`` [B, S], in f32 (float64 for a float64 model's ``dtype``):
+    computed once a step and shared by every attention of the step."""
+    ct = _acc(dtype)
+    freqs = rope_freqs(d, theta, positions.device).to(ct)  # [d/2]
+    ang = positions[..., None].to(ct) * freqs  # [B, S, d/2]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_rope_half(x: torch.Tensor, tables: tuple) -> torch.Tensor:
+    """RoPE with the head's halves rotated (``transformers``'
+    ``rotate_half``: pair i is (x[i], x[i + d/2])), as Zamba2 applies it,
+    on the tables of ``rope_half_tables``; rotated in their type and cast
+    back."""
+    cos, sin = tables
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2].to(cos.dtype), x[..., d // 2:].to(cos.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                 sections=(16, 24, 24)) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE: positions [3, B, S] (t, h, w streams); the
@@ -275,17 +297,19 @@ def chunked_attention(
     q_offset: int = 0,
     kv_chunk: int = 1024,
     bf16_scores: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Online-softmax (flash) attention by a loop over KV chunks.
 
     q: [B, Sq, Hkv, G, d]; k/v: [B, Skv, Hkv, d].  Returns [B, Sq, Hkv, G, d].
     ``q_offset`` is the absolute position of q[0] (for causal masking
-    during chunked prefill / decode).  Memory: O(Sq * kv_chunk) per head.
-    The plain version of the flash kernel.
+    during chunked prefill / decode).  Scores are scaled by ``scale``
+    (default 1/sqrt(d)), rounded to f32.  Memory: O(Sq * kv_chunk) per
+    head.  The plain version of the flash kernel.
     """
     B, Sq, Hkv, G, d = q.shape
     Skv = k.shape[1]
-    scale = _f32_scalar(1.0 / np.sqrt(np.float32(d)))
+    scale = _f32_scalar(1.0 / np.sqrt(np.float32(d)) if scale is None else scale)
     n_chunks = -(-Skv // kv_chunk)
     pad = n_chunks * kv_chunk - Skv
     if pad:
@@ -326,8 +350,13 @@ def chunked_attention(
     return out.to(q.dtype)
 
 
-def _attend(q, k, v, causal: bool, cfg: ArchConfig) -> torch.Tensor:
-    """q [B, S, Hq, d] over k, v [B, Skv, Hkv, d]: ``chunked_attention``
+def _attend(q, k, v, causal: bool, cfg: ArchConfig,
+            scale: Optional[float] = None,
+            kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, S, Hq, d] over k, v [B, Skv, Hkv, d], scores scaled by
+    ``scale`` (default 1/sqrt(d)), over the first ``kv_len`` key rows where
+    that device int is given (the kernel reads it; on the CPU the rows are
+    cut first): ``chunked_attention``
     with the config's chunk and score dtype under autograd (grad mode on
     and an input that requires grad) on any device, since the flash kernel
     has no backward, and on the CPU; the flash kernel (f32 scores) on CUDA
@@ -336,15 +365,19 @@ def _attend(q, k, v, causal: bool, cfg: ArchConfig) -> torch.Tensor:
     if _is_dtensor(q):
         return _attend_local(q, k, v, causal, cfg)
     training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if kv_len is not None and (training or q.device.type == "cpu"):
+        n = int(kv_len.reshape(-1)[0])
+        k, v = k[:, :n], v[:, :n]
     if training or q.device.type == "cpu":
         return flash_lib.flash_attention_plain(
             q, k, v, causal, kv_chunk=cfg.kv_chunk,
-            bf16_scores=cfg.attn_bf16_scores)
+            bf16_scores=cfg.attn_bf16_scores, scale=scale)
     if cfg.attn_bf16_scores:
         raise NotImplementedError(
             "the flash kernel computes f32 scores; bf16 scores "
             "(attn_bf16_scores) run on the CPU only")
-    return flash_lib.flash_attention(q, k, v, causal)
+    kw = {name: val for name, val in (("scale", scale), ("kv_len", kv_len)) if val is not None}
+    return flash_lib.flash_attention(q, k, v, causal, **kw)
 
 
 def _attend_local(q, k, v, causal: bool, cfg: ArchConfig):
@@ -536,6 +569,20 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     params = {k: gather_weight(w) for k, w in params.items()}
     g = torch.nn.functional.silu((x @ params["w_gate"]).to(_acc(x.dtype))).to(x.dtype)
     return reduce_partial((g * (x @ params["w_up"])) @ params["w_down"])
+
+
+def gelu_mlp(params: dict, x: torch.Tensor,
+             adapter: Optional[tuple] = None) -> torch.Tensor:
+    """The gated-GELU MLP beside SwiGLU (Zamba2's): ``w_gate_up`` [D, 2F]
+    gives gate and up in one product, plus ``(x @ a) @ b`` where
+    ``adapter`` = (a [D, r], b [r, 2F]) is given; out = (gelu(gate) * up)
+    @ ``w_down``, the GELU the exact (erf) one, in f32."""
+    gu = x @ params["w_gate_up"]
+    if adapter is not None:
+        gu = gu + (x @ adapter[0]) @ adapter[1]
+    gate, up = gu.chunk(2, dim=-1)
+    g = torch.nn.functional.gelu(gate.to(_acc(x.dtype))).to(x.dtype)
+    return (g * up) @ params["w_down"]
 
 
 # --------------------------------------------------------------------------

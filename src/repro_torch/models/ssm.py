@@ -3,21 +3,30 @@
 Port of the JAX package's ``models/ssm.py``.  The chunked SSD algorithm:
 within a chunk the recurrence is computed in its quadratic "attention"
 dual form (batched matrix products), and a cross-chunk state pass stitches
-the chunks together.  Served with a cache, a prompt runs as one chunk and
-a decode step as a chunk of one token, as in the JAX package.
+the chunks together.
 
 Block structure (mamba2, conv + gate):
   in_proj -> [z | x | B | C | dt]; short causal depthwise conv on (x, B, C);
   SSD over heads (scalar-identity A per head); y = y * silu(z); RMSNorm;
-  out_proj.  n_groups = 1 (B/C shared across heads).
+  out_proj.  n_groups = 1 (B/C shared across heads) for the JAX package's
+  configs.  The published Zamba2 (``Zamba2Config``) has ``ssm_groups`` 2
+  (head h reads group h // (H / G)'s B and C), a conv bias, softplus(dt)
+  clamped below at ``dt_min``, and ``ssm_norm`` 'grouped': norm(y *
+  silu(z)) in f32 over groups of d_inner / G, as ``Zamba2RMSNormGated``.
+
+Served with a cache, a prompt runs in chunks of ``ssm_chunk``, the state
+carried across them: the no-cache scan with an initial state, the JAX
+package's one-chunk prompt in another summation order.  A decode step's
+token runs one step of the recurrence (``_one_token``), which the JAX
+package computes as a chunk of one token.
 
 Numerics are the JAX package's: a bf16 model runs the dual form's
 operands (the decay mask, C B^T and the weighted input) in bf16, their
 products accumulated in f32, and the inter-chunk recurrence in f32;
 softplus is ``logaddexp(x, 0)``.  A float64 model (the CPU reference of
-the card's f32 check) computes all of it in float64.  The decay mask of
-one chunk is [B, n_chunks, H, q, q]: a 2048-token prompt of zamba2-7b at
-batch 4 (H 112) makes it 7.5 GB in f32 on the card.
+the card's f32 check) computes all of it in float64.  The decay mask is
+[B, n_chunks, H, q, q]: at chunk 256 a 4032-token prompt of
+zamba2-7b-instruct at batch 8 (H 112) makes it 3.8 GB in f32 on the card.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _acc, _dtype, _is_dtensor, dense_init, rmsnorm
 
@@ -32,30 +42,49 @@ CONV_K = 4  # mamba2 depthwise conv width
 
 
 def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
-    D, Di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    D, Di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    GN = cfg.ssm_groups * cfg.ssm_state
     dt = _dtype(cfg)
-    proj_out = 2 * Di + 2 * N + H
+    proj_out = 2 * Di + 2 * GN + H
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    p = {
         "in_proj": dense_init(generator, (D, proj_out), dt, device=device),
         "out_proj": dense_init(generator, (Di, D), dt, device=device),
-        "conv_w": dense_init(generator, (CONV_K, Di + 2 * N), dt, scale=0.5,
+        "conv_w": dense_init(generator, (CONV_K, Di + 2 * GN), dt, scale=0.5,
                              device=device),
         "A_log": torch.zeros((H,), **f32),  # A = -exp(A_log) = -1 init
         "D_skip": torch.ones((H,), **f32),
         "dt_bias": torch.zeros((H,), **f32),
         "norm": torch.ones((Di,), dtype=dt, device=device),
     }
+    if cfg.conv_bias:
+        p["conv_b"] = torch.zeros((Di + 2 * GN,), dtype=dt, device=device)
+    return p
 
 
 def _split_proj(p: torch.Tensor, cfg: ArchConfig):
-    Di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return torch.split(p, [Di, Di, N, N, H], dim=-1)  # z, x, B, C, dt
+    Di, H = cfg.d_inner, cfg.ssm_heads
+    GN = cfg.ssm_groups * cfg.ssm_state
+    return torch.split(p, [Di, Di, GN, GN, H], dim=-1)  # z, x, B, C, dt
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, groups: int,
+                  eps: float) -> torch.Tensor:
+    """Zamba2's gated RMSNorm: y * silu(z) in f32 (float64 for a float64
+    model), normalised over ``groups`` groups of the last dim, cast back,
+    times ``gamma``."""
+    ct = _acc(y.dtype)
+    u = y.to(ct) * torch.nn.functional.silu(z.to(ct))
+    g = u.reshape(*u.shape[:-1], groups, u.shape[-1] // groups)
+    g = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + eps)
+    return g.reshape(u.shape).to(y.dtype) * gamma
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor,
-                 state: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, width CONV_K.  u: [B, L, C]; w: [K, C].
+                 state: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, width CONV_K.  u: [B, L, C]; w: [K, C];
+    ``bias`` [C] added before the SiLU.
 
     With a ``state`` [B, K-1, C] (decode), prepends it; else zero-pads.
     Returns (out [B, L, C], new_state [B, K-1, C]).
@@ -68,6 +97,8 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor,
     out = torch.zeros((Bsz, L, C), dtype=ct, device=u.device)
     for k in range(CONV_K):
         out = out + full[:, k : k + L, :].to(ct) * w[k].to(ct)[None, None, :]
+    if bias is not None:
+        out = out + bias.to(ct)
     new_state = full[:, L:, :]
     return torch.nn.functional.silu(out).to(u.dtype), new_state
 
@@ -76,8 +107,8 @@ def ssd_chunked(
     x: torch.Tensor,  # [B, L, H, dh] (dt-unweighted input)
     dt: torch.Tensor,  # [B, L, H] positive step sizes
     A: torch.Tensor,  # [H] negative decay rates
-    Bm: torch.Tensor,  # [B, L, N]
-    Cm: torch.Tensor,  # [B, L, N]
+    Bm: torch.Tensor,  # [B, L, N], or [B, L, G, N] for G groups
+    Cm: torch.Tensor,  # as Bm
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,  # [B, H, N, dh]
     compute_dtype: torch.dtype = torch.float32,
@@ -86,25 +117,29 @@ def ssd_chunked(
 
     ``compute_dtype=torch.bfloat16`` rounds the dual form's operands to
     bf16 and accumulates their products in f32; the inter-chunk state
-    recurrence stays in f32 (float64 for float64 inputs).
+    recurrence stays in f32 (float64 for float64 inputs).  With G groups
+    of B and C, head h reads group h // (H / G); [B, L, N] is one group.
     """
     Bsz, L, H, dh = x.shape
-    N = Bm.shape[-1]
+    if Bm.dim() == 3:
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    G, N = Bm.shape[2], Bm.shape[3]
+    Hg = H // G
     ct = _acc(x.dtype)
     nc = -(-L // chunk)
     pad = nc * chunk - L
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
-        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, 0, 0, pad))
 
     q = chunk
     xw = (x * dt[..., None]).to(ct)  # dt-weighted input
     dA = (dt * A[None, None, :]).reshape(Bsz, nc, q, H)  # log-decay (negative)
     xw = xw.reshape(Bsz, nc, q, H, dh)
-    Bc = Bm.reshape(Bsz, nc, q, N).to(ct)
-    Cc = Cm.reshape(Bsz, nc, q, N).to(ct)
+    Bc = Bm.reshape(Bsz, nc, q, G, N).to(ct)
+    Cc = Cm.reshape(Bsz, nc, q, G, N).to(ct)
     dA_cs = torch.cumsum(dA, dim=2)  # [B, nc, q, H]
 
     # --- intra-chunk (quadratic dual form), heads before rows ---
@@ -120,17 +155,21 @@ def ssd_chunked(
     else:  # in place: serving holds one mask, not three
         mask.exp_()
         mask.masked_fill_(upper, 0.0)
-    scores = torch.einsum("bcin,bcjn->bcij", Cc.to(cd), Bc.to(cd)).to(ct)
-    # the mask rounded to the compute dtype, times the scores: products of
-    # two cd values, exact in ct
-    mask = mask.to(cd) * scores[:, :, None]
+    scores = torch.einsum("bcign,bcjgn->bcgij", Cc.to(cd), Bc.to(cd)).to(ct)
+    # the mask rounded to the compute dtype, times its group's scores:
+    # products of two cd values, exact in ct
+    mask = (mask.to(cd).reshape(Bsz, nc, G, Hg, q, q) * scores[:, :, :, None]
+            ).reshape(Bsz, nc, H, q, q)
     xw_cd = xw.to(cd).to(ct).permute(0, 1, 3, 2, 4)  # [B, nc, H, q, dh]
     y_intra = torch.matmul(mask, xw_cd).permute(0, 1, 3, 2, 4)  # [B,nc,q,H,dh]
     del mask
 
     # --- chunk boundary states ---
     decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # [B, nc, q, H]
-    S_contrib = torch.einsum("bcqn,bcqhd->bchnd", Bc, xw * decay_to_end[..., None])
+    S_contrib = torch.einsum(
+        "bcqgn,bcqgkd->bcgknd", Bc,
+        (xw * decay_to_end[..., None]).reshape(Bsz, nc, q, G, Hg, dh),
+    ).reshape(Bsz, nc, H, N, dh)
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # [B, nc, H]
 
     S = (initial_state.to(ct) if initial_state is not None
@@ -142,7 +181,9 @@ def ssd_chunked(
     S_prev = torch.stack(S_prev, dim=1)  # [B, nc, H, N, dh]
 
     # --- inter-chunk contribution ---
-    y_inter = torch.einsum("bcqn,bchnd->bcqhd", Cc, S_prev) * torch.exp(dA_cs)[..., None]
+    y_inter = torch.einsum(
+        "bcqgn,bcgknd->bcqgkd", Cc, S_prev.reshape(Bsz, nc, G, Hg, N, dh),
+    ).reshape(Bsz, nc, q, H, dh) * torch.exp(dA_cs)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, nc * q, H, dh)[:, :L]
     return y, S
 
@@ -158,18 +199,24 @@ def ssd_sequential(
     """Step-by-step SSD recurrence oracle (tests validate ssd_chunked):
 
       S_t = exp(dt_t * A) * S_{t-1} + dt_t * (B_t (x) x_t);   y_t = C_t . S_t
+
+    Bm, Cm: [B, L, N] or [B, L, G, N] (head h reads group h // (H / G)).
     """
     Bsz, L, H, dh = x.shape
-    N = Bm.shape[-1]
+    if Bm.dim() == 3:
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    G, N = Bm.shape[2], Bm.shape[3]
     ct = _acc(x.dtype)
+    Bh = Bm.repeat_interleave(H // G, dim=2)  # [B, L, H, N]
+    Ch = Cm.repeat_interleave(H // G, dim=2)
     S = (initial_state.to(ct) if initial_state is not None
          else torch.zeros((Bsz, H, N, dh), dtype=ct, device=x.device))
     ys = []
     for t in range(L):
         decay = torch.exp(dt[:, t] * A[None, :])  # [B, H]
         S = S * decay[:, :, None, None] + torch.einsum(
-            "bn,bh,bhd->bhnd", Bm[:, t].to(ct), dt[:, t], x[:, t].to(ct))
-        ys.append(torch.einsum("bn,bhnd->bhd", Cm[:, t].to(ct), S))
+            "bhn,bh,bhd->bhnd", Bh[:, t].to(ct), dt[:, t], x[:, t].to(ct))
+        ys.append(torch.einsum("bhn,bhnd->bhd", Ch[:, t].to(ct), S))
     return torch.stack(ys, dim=1), S
 
 
@@ -181,43 +228,101 @@ def ssm_block_apply(
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """One mamba2 block (pre-norm residual handled by caller).
 
-    cache (decode): {'conv': [B, K-1, Di+2N], 'S': [B, H, N, dh]}; the new
-    states are returned, not written into it.
+    cache (decode): {'conv': [B, K-1, Di+2GN], 'S': [B, H, N, dh]}; the new
+    states are returned, not written into it.  With a cache, a prompt runs
+    in chunks of ``ssm_chunk``, its state carried, and a single token
+    (L == 1, a decode step) runs ``_one_token``.
     """
     if _is_dtensor(h):
         return _ssm_block_local(params, h, cfg, cache)
     Di, N, H, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    G = cfg.ssm_groups
     Bsz, L, D = h.shape
     ct = _acc(h.dtype)
     proj = h @ params["in_proj"]
+    if cache is not None and L == 1:
+        return _one_token(params, proj, cfg, cache)
     z, x, Bm, Cm, dt = _split_proj(proj, cfg)
 
     conv_in = torch.cat([x, Bm, Cm], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state)
-    x, Bm, Cm = torch.split(conv_out, [Di, N, N], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state,
+                                      params.get("conv_b"))
+    x, Bm, Cm = torch.split(conv_out, [Di, G * N, G * N], dim=-1)
+    if G > 1:
+        Bm, Cm = Bm.reshape(Bsz, L, G, N), Cm.reshape(Bsz, L, G, N)
 
-    dt = dt.to(ct) + params["dt_bias"]
-    dt = torch.logaddexp(dt, torch.zeros((), dtype=dt.dtype, device=dt.device))
+    dt = _step_sizes(dt, params, cfg)
     A = -torch.exp(params["A_log"])
     xh = x.reshape(Bsz, L, H, dh)
 
     # bf16 models run the dual form in bf16 (see ssd_chunked)
     cd = torch.bfloat16 if h.dtype == torch.bfloat16 else ct
+    chunk = cfg.ssm_chunk
     if cache is None:
-        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, compute_dtype=cd)
+        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, chunk, compute_dtype=cd)
         new_cache = None
     else:
-        # a served prompt (or a decode step) runs as one chunk
-        y, S = ssd_chunked(xh, dt, A, Bm, Cm, chunk=max(L, 1),
-                           initial_state=cache["S"], compute_dtype=cd)
+        # a served prompt runs in chunks of ssm_chunk, its state carried
+        chunk = min(L, chunk)
+        y, S = ssd_chunked(xh, dt, A, Bm, Cm, chunk, initial_state=cache["S"],
+                           compute_dtype=cd)
         new_cache = {"conv": new_conv, "S": S}
+    obs.count("lm.ssm_chunks", -(-L // chunk))
 
     y = y + params["D_skip"][None, None, :, None] * xh.to(ct)
-    y = y.reshape(Bsz, L, Di).to(h.dtype)
-    y = y * torch.nn.functional.silu(z.to(ct)).to(h.dtype)
-    y = rmsnorm(y, params["norm"])
+    y = _gated_norm(y.reshape(Bsz, L, Di).to(h.dtype), z, params["norm"], cfg)
     return y @ params["out_proj"], new_cache
+
+
+def _step_sizes(dt: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """softplus(dt + dt_bias) in f32 (float64 for a float64 model), clamped
+    below at ``cfg.dt_min`` where it is set."""
+    dt = dt.to(_acc(dt.dtype)) + params["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros((), dtype=dt.dtype, device=dt.device))
+    return torch.clamp(dt, min=cfg.dt_min) if cfg.dt_min else dt
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """The block's output norm of y gated by z (both in the model's dtype),
+    as ``cfg.ssm_norm`` names it."""
+    if cfg.ssm_norm == "grouped":
+        return gated_rmsnorm(y, z, gamma, cfg.ssm_groups, cfg.norm_eps)
+    y = y * torch.nn.functional.silu(z.to(_acc(y.dtype))).to(y.dtype)
+    return rmsnorm(y, gamma)
+
+
+def _one_token(params: dict, proj: torch.Tensor, cfg: ArchConfig,
+               cache: dict) -> tuple[torch.Tensor, dict]:
+    """One token through the block from its in_proj output proj [B, 1, ..]
+    and the layer's caches: the conv as one product over its window and the
+    SSD as one step of its recurrence, S = exp(dt A) S + dt B x^T, y = C . S
+    + D x, in f32 (float64 for a float64 model) on the model-dtype values;
+    what a chunk of one token computes, in fewer launches.  Returns (y [B,
+    1, D], the new states), as ``ssm_block_apply``."""
+    Di, N, H, dh, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
+    Bsz, dtype = proj.shape[0], proj.dtype
+    ct = _acc(dtype)
+    z, xbc, dt = torch.split(proj, [Di, Di + 2 * G * N, H], dim=-1)
+    full = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, C]
+    conv = (full.to(ct) * params["conv_w"].to(ct)).sum(dim=1)
+    if "conv_b" in params:
+        conv = conv + params["conv_b"].to(ct)
+    x, Bm, Cm = torch.split(torch.nn.functional.silu(conv).to(dtype), [Di, G * N, G * N],
+                            dim=-1)
+    dt = _step_sizes(dt[:, 0], params, cfg)  # [B, H]
+    A = -torch.exp(params["A_log"])
+    Hg = H // G
+    xh = x.reshape(Bsz, G, Hg, dh).to(ct)
+    S = torch.addcmul(
+        cache["S"].view(Bsz, G, Hg, N, dh) * torch.exp(dt * A).reshape(Bsz, G, Hg, 1, 1),
+        Bm.reshape(Bsz, G, 1, N, 1).to(ct), (xh * dt.reshape(Bsz, G, Hg, 1))[:, :, :, None])
+    y = torch.einsum("bgn,bgknd->bgkd", Cm.reshape(Bsz, G, N).to(ct), S)
+    obs.count("lm.ssm_chunks", 1)
+    y = y + params["D_skip"].reshape(G, Hg, 1) * xh
+    y = _gated_norm(y.reshape(Bsz, 1, Di).to(dtype), z, params["norm"], cfg)
+    return y @ params["out_proj"], {"conv": full[:, 1:], "S": S.reshape(Bsz, H, N, dh)}
 
 
 def _ssm_block_local(params: dict, h, cfg: ArchConfig, cache: Optional[dict]):

@@ -6,7 +6,9 @@ Port of the JAX package's ``models/transformer.py``:
   ssm         : a stack of mamba2 blocks (``models/ssm.py``), no attention
   hybrid      : mamba2 backbone + ONE shared attention block applied every
                 ``attn_every`` layers with per-application LoRA on W_q
-                (zamba2)
+                (zamba2, the JAX package's simplified variant); Zamba2 as
+                published (``Zamba2Config``, zamba2-7b-instruct) runs the
+                layer loop of ``models/zamba2.py``
   audio       : whisper-style encoder-decoder over frame embeddings (the
                 conv frontend is a stub: callers pass the frames)
 
@@ -46,6 +48,7 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import zamba2 as zamba2_lib
 from repro_torch.models.config import ArchConfig
 
 # leaves the JAX package keeps in float32 whatever the model's dtype
@@ -83,18 +86,24 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The LM: embedding, blocks, final norm, LM head (untied); zamba2's
-    shared attention block; whisper's encoder and cross-attention blocks."""
+    """The LM: embedding, blocks, final norm, LM head (untied, or the
+    embedding where ``cfg.tie_embeddings``: ``lm_head`` None); zamba2's
+    shared attention block; the published Zamba2's shared blocks and
+    per-application weights (``shared_blocks``, ``apps``); whisper's
+    encoder and cross-attention blocks."""
 
     def __init__(self, weights: dict, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(weights["embed"])
-        self.lm_head = nn.Parameter(weights["lm_head"])
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(weights["lm_head"])
         self.final_norm = L.RMSNorm(weights["final_norm"])
         self.blocks = nn.ModuleList(Block(b, cfg) for b in weights["blocks"])
         self.shared_attn = (Block(weights["shared_attn"], cfg)
                             if cfg.family == "hybrid" else None)
+        if cfg.family == "zamba2":
+            self.shared_blocks = nn.ModuleList(Block(b, cfg) for b in weights["shared_blocks"])
+            self.apps = nn.ModuleList(L._Weights(a) for a in weights["apps"])
         if cfg.family == "audio":
             self.enc_blocks = nn.ModuleList(Block(b, cfg) for b in weights["enc_blocks"])
             self.enc_norm = L.RMSNorm(weights["enc_norm"])
@@ -159,7 +168,10 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     live on that device), in the JAX package's distributions: embedding
     N(0, 0.02), projections N(0, 1/fan_in) (experts N(0, 1/E), as its
     ``dense_init`` reads the leading axis), norms 1, SSM gains as
-    initialised there."""
+    initialised there.  The published Zamba2 takes
+    ``zamba2.init_weights``."""
+    if cfg.family == "zamba2":
+        return Transformer(zamba2_lib.init_weights(generator, cfg, device), cfg)
     dt = L._dtype(cfg)
     V, D = cfg.vocab_padded, cfg.d_model
     weights = {
@@ -221,6 +233,15 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device) -> Transformer:
     return Transformer(weights, cfg)
 
 
+def params_from_hf(state: dict, cfg: ArchConfig, device=None) -> Transformer:
+    """A published Zamba2 checkpoint's state dict (``Zamba2ForCausalLM``'s
+    parameter names) -> a ``Transformer`` of ``cfg`` (a ``Zamba2Config``)
+    on ``device``, each weight copied in ``cfg.dtype``."""
+    if cfg.family != "zamba2":
+        raise ValueError(f"{cfg.name} is not the published Zamba2 layout")
+    return Transformer(zamba2_lib.weights_from_hf(state, cfg, device), cfg)
+
+
 def _leaves(sub):
     if isinstance(sub, dict):
         for v in sub.values():
@@ -237,11 +258,15 @@ def weights(model: Transformer, fn=lambda t: t) -> dict:
     def tree(t):
         return {k: tree(v) for k, v in t.items()} if isinstance(t, dict) else fn(t)
 
-    out = {"embed": fn(model.embed), "lm_head": fn(model.lm_head),
-           "final_norm": fn(model.final_norm.gamma)}
+    out = {"embed": fn(model.embed), "final_norm": fn(model.final_norm.gamma)}
+    if model.lm_head is not None:
+        out["lm_head"] = fn(model.lm_head)
     for key in _STACKED:
         if hasattr(model, key):
             out[key] = [tree(b.tree()) for b in getattr(model, key)]
+    if model.cfg.family == "zamba2":
+        out["shared_blocks"] = [tree(b.tree()) for b in model.shared_blocks]
+        out["apps"] = [tree(a.params()) for a in model.apps]
     if model.shared_attn is not None:
         out["shared_attn"] = tree(model.shared_attn.tree())
     if hasattr(model, "enc_norm"):
@@ -447,6 +472,14 @@ def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, table)
 
 
+def _head(model: Transformer) -> torch.Tensor:
+    """The LM head [D, V_padded]: ``lm_head``, or the tied embedding's
+    transpose."""
+    if model.lm_head is None:
+        return model.embed.t()
+    return L.gather_weight(model.lm_head)
+
+
 def _positions(start: int, batch: int, seq: int, device, mrope: bool = False) -> torch.Tensor:
     pos = (start + torch.arange(seq, device=device)).expand(batch, seq)
     return pos.expand(3, batch, seq) if mrope else pos
@@ -473,6 +506,8 @@ def forward(model: Transformer, tokens: torch.Tensor,
     elif cfg.family == "ssm":
         for blk in model.blocks:
             h = _remat(cfg, lambda hh, b=blk: _constrain_tokens(_ssm_layer(b, hh)[0]), h)
+    elif cfg.family == "zamba2":
+        h = zamba2_lib.layers(model, h, positions)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, positions)
     elif cfg.family == "audio":
@@ -489,8 +524,12 @@ def forward(model: Transformer, tokens: torch.Tensor,
             h = _remat(cfg, lambda hh, i=i: layer(hh, i), h)
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
-    h = model.final_norm(h)
-    return h @ L.gather_weight(model.lm_head)
+    return _logits(model, h)
+
+
+def _logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    h = L.rmsnorm(h, model.final_norm.gamma, model.cfg.norm_eps)
+    return h @ _head(model)
 
 
 # --------------------------------------------------------------------------
@@ -506,6 +545,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     whisper's cross K, V [L, B, enc_len, Hkv, d_head].  ``dtype`` is the
     weights' (default ``cfg.dtype``)."""
     dt = dtype or L._dtype(cfg)
+    if cfg.family == "zamba2":
+        return zamba2_lib.init_cache(cfg, batch, max_len, device=device, dtype=dt)
     z = dict(dtype=dt, device=device)
     Lr = cfg.n_layers
 
@@ -537,12 +578,22 @@ def decode_step(model: Transformer, cache: dict,
     """One decode step: tokens [B, S] -> (updated cache, logits [B, S, V]).
 
     S == 1 attends to the cache; S > 1 is the prefill of an empty cache.
-    The cache's tensors are updated in place.
+    The cache's tensors are updated in place.  The published Zamba2's
+    decode step is ``zamba2.decode_static`` at position 'len', or at the
+    device position 'pos' (int64 [1]) where the cache holds one: the step
+    its ``DecodeGraph`` captures.
     """
     cfg = model.cfg
     B, S = tokens.shape
-    h = _constrain_tokens(_embed(model, tokens))
     idx = cache["len"]
+    if cfg.family == "zamba2" and (idx or "pos" in cache):
+        if S != 1:
+            raise ValueError("a decode step after the prefill takes one token")
+        at = cache.get("pos")
+        if at is None:
+            at = torch.tensor([idx], dtype=torch.long, device=tokens.device)
+        return dict(cache, len=idx + 1), zamba2_lib.decode_static(model, cache, tokens, at)
+    h = _constrain_tokens(_embed(model, tokens))
     pos = _positions(idx, B, S, tokens.device, cfg.mrope)
 
     def kv(i):
@@ -554,6 +605,8 @@ def decode_step(model: Transformer, cache: dict,
     elif cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             h = _ssm_step(blk, h, cache, i)
+    elif cfg.family == "zamba2":
+        h = zamba2_lib.layers(model, h, pos, cache=cache)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, pos, cache=cache)
     elif cfg.family == "audio":
@@ -563,8 +616,7 @@ def decode_step(model: Transformer, cache: dict,
     else:
         raise ValueError(cfg.family)
     new_cache = dict(cache, len=idx + S)
-    h = model.final_norm(h)
-    return new_cache, h @ L.gather_weight(model.lm_head)
+    return new_cache, _logits(model, h)
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,

@@ -34,6 +34,7 @@ that waits for it.  Nothing is written to disk; the caller takes
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -120,6 +121,19 @@ def disable() -> None:
             if name in _kernels:
                 _kernels[name][1] = c
     ON = False
+
+
+@contextlib.contextmanager
+def paused():
+    """Tracing off inside the block, as it was after it: for work that is
+    recorded once and replayed (a CUDA graph's capture), whose spans and
+    counters the replaying caller records instead."""
+    global ON
+    was, ON = ON, False
+    try:
+        yield
+    finally:
+        ON = was
 
 
 def reset() -> None:

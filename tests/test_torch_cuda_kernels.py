@@ -815,6 +815,140 @@ def test_flash_head_dim_112_matches_plain(cuda_device, b, sq, hq, hkv, causal, s
     assert _rel(got, flash_lib.flash_attention_plain(qb, kb, vb, causal)) < 2e-2
 
 
+@pytest.mark.parametrize("b,sq,hq,hkv,causal,skv", [
+    (2, 200, 32, 32, True, None),   # zamba2-7b-instruct's MHA
+    (2, 200, 32, 32, False, None),
+    (1, 300, 4, 1, True, None),     # grouped, causal edges
+    (2, 1, 16, 16, False, 1500),    # one decode row over 1500 keys
+    (1, 77, 8, 1, False, 130),      # Sq, Skv not multiples of the tiles
+    (1, 129, 8, 2, True, None),
+])
+def test_flash_head_dim_224_matches_plain(cuda_device, b, sq, hq, hkv, causal, skv):
+    """Head dim 224 through the kernel (bf16: the D = 256 tiles on tensor
+    maps of inner extent 224, two K/V stages; f32: the CUDA-core kernel at
+    D = 224), with Zamba2's scale (224 / 2)^-1/2: f32 within 2e-5 of the
+    plain version; bf16 per element against the plain version in f32 on
+    the same bf16 values, within one bf16 rounding plus 1e-5 of the
+    largest output."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    scale = 112 ** -0.5
+    q, k, v = _flash_inputs(b, sq, hq, hkv, 224, skv, seed=sq + hq + 224)
+    ref = flash_lib.flash_attention_plain(q, k, v, causal, scale=scale)
+    before = build.FLASH_ATTENTION.launches
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got.cpu(), ref) < 2e-5
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (qb, kb, vb)), causal,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == qb.shape
+    got = got.cpu().float()
+    ref32 = flash_lib.flash_attention_plain(qb.float(), kb.float(), vb.float(), causal,
+                                            scale=scale)
+    bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+    assert bool(((got - ref32).abs() <= bound).all())
+    assert _rel(got, flash_lib.flash_attention_plain(qb, kb, vb, causal, scale=scale)) < 2e-2
+
+
+@pytest.mark.parametrize("d", [64, 112, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_reads_the_leading_rows_of_a_cache(cuda_device, d, dtype):
+    """K and V as the leading n rows of a [B, R, H, d] cache (a decode
+    step's attention over the filled positions): the kernel reads them
+    where they lie, the rows past n (large finite garbage here: the bf16
+    kernel's last tile multiplies them by a probability of 0) masked, the
+    same result as on contiguous copies; one query row and a prefill's
+    worth of rows alike."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    b, R, h = 3, 700, 4
+    _, ck, cv = (t.to(dtype) for t in _flash_inputs(b, 1, h, h, d, R, seed=d))
+    ck[:, 600:] = 1e4
+    cv[:, 600:] = -3e4
+    for sq, n, causal in ((1, 517, False), (1, 64, False), (40, 600, False), (600, 600, True)):
+        q = _flash_inputs(b, sq, h, h, d, seed=n)[0].to(dtype)
+        k, v = ck[:, :n], cv[:, :n]
+        assert not k.is_contiguous()
+        want = flash_lib.flash_attention(*(t.contiguous().to(cuda_device) for t in (q, k, v)),
+                                         causal)
+        got = flash_lib.flash_attention(q.to(cuda_device), ck.to(cuda_device)[:, :n],
+                                        cv.to(cuda_device)[:, :n], causal)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want.cpu()), (sq, n)
+
+
+@pytest.mark.parametrize("d", [64, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_reads_its_key_count_from_the_device(cuda_device, d, dtype):
+    """``kv_len`` (one int32 on the card) in place of the host's count: the
+    same result as the cache's leading rows, for lengths across the 64-key
+    tiles, with the rows past the length holding garbage."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    b, R, h = 2, 300, 4
+    _, ck, cv = (t.to(dtype).to(cuda_device) for t in _flash_inputs(b, 1, h, h, d, R, seed=d))
+    ck[:, 200:] = 3e4
+    cv[:, 200:] = -3e4
+    q = _flash_inputs(b, 1, h, h, d, seed=1)[0].to(dtype).to(cuda_device)
+    for n in (1, 63, 64, 65, 200):
+        want = flash_lib.flash_attention(q, ck[:, :n], cv[:, :n], False)
+        got = flash_lib.flash_attention(q, ck, cv, False, kv_len=torch.tensor(
+            [n], dtype=torch.int32, device=cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), n
+
+
+def test_zamba2_decode_graph_equals_the_eager_decode(cuda_device):
+    """The published Zamba2's decode step as a CUDA graph (``DecodeGraph``,
+    what ``launch.serve`` runs on the card) against the eager decode step
+    on the same card, smoke config in f32: the same logits bit for bit,
+    step after step, and the same greedy tokens through ``serve`` twice
+    (the second batch on the kept graph, its cache reset); the model keeps
+    one graph, and a batch of another shape replaces it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zamba2
+
+    cfg = get_arch("zamba2-7b-instruct", smoke=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    with torch.inference_mode():
+        model = T.init_params(cfg, generator=gen, device=cuda_device)
+        with torch.no_grad():
+            for a in model.apps:
+                a.adapter_b.normal_(0, 0.1, generator=gen)
+        tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen, device=cuda_device)
+        graph = zamba2.decode_graph(model, 2, 48)
+        assert zamba2.decode_graph(model, 2, 48) is graph  # kept for the shape
+        cache, _ = T.prefill(model, tok[:, :33], max_len=48, cache=graph.cache)
+        eager, _ = T.prefill(model, tok[:, :33], max_len=48)
+        for t in range(33, 40):
+            got = graph.step(tok[:, t: t + 1], t).clone()
+            eager, want = T.decode_step(model, eager, tok[:, t: t + 1])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), t
+        r = serve_lib.serve(cfg, tokens=6, device=cuda_device, model=model, prompts=tok,
+                            keep=[0])
+        r2 = serve_lib.serve(cfg, tokens=6, device=cuda_device, model=model, prompts=tok)
+        cache, lg = T.prefill(model, tok, max_len=47)
+        toks = [lg[:, -1:, : cfg.vocab_size].argmax(-1)]
+        for _ in range(5):
+            cache, lg = T.decode_step(model, cache, toks[-1])
+            toks.append(lg[:, -1:, : cfg.vocab_size].argmax(-1))
+    assert np.array_equal(r.generations, torch.cat(toks, 1).cpu().numpy())
+    assert np.array_equal(r2.generations, r.generations)
+    kept = model.__dict__["_decode_graph"][1]
+    with torch.inference_mode():
+        other = zamba2.decode_graph(model, 1, 48)
+    assert other is not kept and model.__dict__["_decode_graph"][1] is other
+
+
 def test_flash_attention_refuses_bad_operands(cuda_device):
     from repro_torch.kernels import flash_attention as flash_lib
 
