@@ -132,7 +132,12 @@ JAX or the JAX package.  Phases, each of which asserts:
     against its plain version and printed beside it, SDPA and its bound:
     one kimi-k2 and one zamba2 prefill layer (head dim 112, B 4 x 2048,
     GQA 64:8 and MHA 32), one whisper encoder layer (1500 frames,
-    non-causal) and whisper's decode cross-attention (Sq 1 over 1500).
+    non-causal) and whisper's decode cross-attention (Sq 1 over 1500);
+    then the SSD scan kernel (bf16) at the zamba2-7b-instruct.docs4k
+    prefill's shape (B 8 x 4,032, H 112, G 2, N 64, dh 64, chunks of
+    256) through ``ssd_chunked``, held to its plain version per element
+    and in the norm (``repro_torch.testing.ssd``), beside the plain
+    version and its bound (bytes: x, B, C, dt in, y and the state out).
 
 18. the TNN serving path, launch counters read around it: the streaming
     ``serve.ClusteringService`` over the seven Table II designs at
@@ -182,7 +187,9 @@ JAX or the JAX package.  Phases, each of which asserts:
     cut is printed), mamba2-370m (48), zamba2-7b (81), whisper-medium (24 +
     24, zero frames) and qwen2-vl-7b (28): flash launches per prefill
     (16, 1, 0, 13, 72, 28; whisper 24 more per decode step, its
-    cross-attention), nothing else launched, prefill ms, decode ms per
+    cross-attention), SSD scan launches per prefill (mamba2-370m 48,
+    zamba2-7b 81: one a mamba layer; none a decode step), nothing else
+    launched, prefill ms, decode ms per
     token, peak device memory, and one prefill and four decode steps
     under ``torch.profiler`` (device busy and idle share); then each
     family at full width, depth cut to hold one attention application
@@ -273,14 +280,14 @@ DSE_CPU_CHECKED = (10, 22)
 # the LM serving path: granite-3-8b's prefill shape
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "granite-3-8b", 4, 2048, 16
 # phase 22: (arch id, layers served (None: all), flash launches per prefill,
-# per decode step)
+# per decode step, SSD scan launches per prefill: one a mamba layer)
 FAMILY_SERVING = (
-    ("olmoe-1b-7b", None, 16, 0),
-    ("kimi-k2-1t-a32b", 1, 1, 0),  # 61 layers of 384 experts: ~2 TB in bf16
-    ("mamba2-370m", None, 0, 0),
-    ("zamba2-7b", None, 13, 0),
-    ("whisper-medium", None, 72, 24),
-    ("qwen2-vl-7b", None, 28, 0),
+    ("olmoe-1b-7b", None, 16, 0, 0),
+    ("kimi-k2-1t-a32b", 1, 1, 0, 0),  # 61 layers of 384 experts: ~2 TB in bf16
+    ("mamba2-370m", None, 0, 0, 48),
+    ("zamba2-7b", None, 13, 0, 81),
+    ("whisper-medium", None, 72, 24, 0),
+    ("qwen2-vl-7b", None, 28, 0, 0),
 )
 # card against float64 CPU: the depth that holds one attention application
 FAMILY_CHECK_LAYERS = {"zamba2-7b": 7}  # the rest: 2 (whisper 2 + 2)
@@ -1744,11 +1751,12 @@ def calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
 
 
 def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
-               tag="serve") -> dict:
+               tag="serve", n_ssd=0) -> dict:
     """The serving path at full width (phase 16: granite-3-8b at full
     depth; phase 22: each family), launch counters reset just before it
     and read just after: ``n_prefill`` flash launches a prefill (default
-    one a layer) and ``n_decode`` a decode step, nothing else; then again,
+    one a layer) and ``n_decode`` a decode step, ``n_ssd`` SSD scan
+    launches a prefill (none a decode step), nothing else; then again,
     warm; then one prefill and four decode steps profiled.  Returns its
     numbers."""
     import torch
@@ -1773,15 +1781,17 @@ def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
         f"({n_params} parameters): prefill[{LM_BATCH}x{LM_PROMPT}] "
         f"{r.prefill_s * 1e3!r} ms, {LM_TOKENS} tokens, decode "
         f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches} (flash: "
-        f"{n_prefill} a prefill + {LM_TOKENS - 1} x {n_decode} a decode step); peak "
+        f"{n_prefill} a prefill + {LM_TOKENS - 1} x {n_decode} a decode step; "
+        f"ssd_scan: {n_ssd} a prefill); peak "
         f"device memory {peak} B; logits finite={finite} | {card}")
     log(f"[{tag}] sample generations: {r.generations[:2, :8].tolist()}")
     assert launches == {k.name: 0 for k in build.KERNELS} | {
-        "flash_attention": want}, (cfg.name, launches, want)
+        "flash_attention": want, "ssd_scan": n_ssd}, (cfg.name, launches, want, n_ssd)
     assert finite and r.generations.shape == (LM_BATCH, LM_TOKENS)
     assert r.prefill_logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded)
     assert int(r.generations.max()) < cfg.vocab_size
-    out = dict(launches=launches["flash_attention"], peak=peak, params=n_params,
+    out = dict(launches=launches["flash_attention"], ssd_launches=launches["ssd_scan"],
+               peak=peak, params=n_params,
                prefill_ms=r.prefill_s * 1e3, decode_ms=r.decode_s_per_token * 1e3)
     del r
     warm = serve_lib.serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -2016,6 +2026,56 @@ def time_flash(flash_lib, timer, dev, card) -> dict:
     return out
 
 
+# phase 17: the SSD scan at the zamba2-7b-instruct.docs4k cell's prefill
+# shape (b, L, H, G, N, dh, chunk): B 8 x 4,032, chunks of 256
+SSD_TIMED = (8, 4032, 112, 2, 64, 64, 256)
+
+
+def ssd_bound(b, L, H, G, N, dh, chunk, elem_bytes) -> tuple[int, int]:
+    """Bytes and operations of one scan from a zero state: x, B and C
+    (``elem_bytes`` each) and dt (f32) read once, y and the final state
+    written once in f32; the dual form's 2 (N + dh) operations a causal
+    (query, key) pair of a chunk (C B^T, then mask * scores times x) and
+    the state's 4 N dh a position (B^T x and C S), as the plain version
+    does them (the kernel's bf16 parts do more)."""
+    full, last = divmod(L, chunk)
+    pairs = full * chunk * (chunk + 1) // 2 + last * (last + 1) // 2
+    n_bytes = (elem_bytes * b * L * (H * dh + 2 * G * N) + 4 * b * L * H
+               + 4 * b * L * H * dh + 4 * b * H * N * dh)
+    n_ops = b * H * (2 * (N + dh) * pairs + 4 * N * dh * L)
+    return n_bytes, n_ops
+
+
+def time_ssd(timer, dev, card) -> tuple:
+    """The SSD scan kernel (bf16) at ``SSD_TIMED`` through ``ssd_chunked``:
+    held to the plain version (``repro_torch.testing.ssd``: per element
+    and in the norm, bit-equality printed), then timed beside it and its
+    bound.  Returns ((ms, plain ms, bound ms, what bounds it), the largest
+    |difference| of y)."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssd as ssd_test
+
+    b, L, H, G, N, dh, chunk = SSD_TIMED
+    bf = torch.bfloat16
+    ops = ssd_test.ssd_inputs(b, L, H, G, N, dh, bf, dev, seed=L, initial=False)
+    r = ssd_test.agreement(ssm.ssd_chunked(**ops, chunk=chunk, compute_dtype=bf), ops,
+                           chunk)
+    ms = timer(lambda: ssm.ssd_chunked(**ops, chunk=chunk, compute_dtype=bf), 20)
+    plain_ms = timer(lambda: ssm.ssd_chunked_plain(**ops, chunk=chunk, compute_dtype=bf),
+                     3, warmup=1)
+    n_bytes, n_ops = ssd_bound(b, L, H, G, N, dh, chunk, 2)
+    b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[time] ssd_scan zamba2-7b-instruct prefill layer: B={b} L={L} H={H} G={G} "
+        f"N={N} dh={dh} chunk={chunk} bf16 ms={ms!r} plain_ms={plain_ms!r} "
+        f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops; the operations alone "
+        f"{n_ops / BF16_OPS_PER_S * 1e3!r} ms at the bf16 peak); against the plain "
+        f"version: {r} (y, state, norm <= 1) | {card}")
+    assert ssd_test.holds(r), ("ssd_scan differs", r)
+    return (ms, plain_ms, b_ms, by), r["max_abs"]
+
+
 def family_check(T, moe_lib, cfg_full, dev, card) -> None:
     """Phase 22, card against CPU: full width, depth cut to one attention
     application, f32; card logits against a float64 CPU reference of the
@@ -2124,7 +2184,7 @@ def lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for arch, n_layers, n_prefill, n_decode in FAMILY_SERVING:
+    for arch, n_layers, n_prefill, n_decode, n_ssd in FAMILY_SERVING:
         cfg = get_arch(arch)
         if n_layers is not None:
             log(f"[families] {arch}: full width, {n_layers} of its {cfg.n_layers} "
@@ -2132,8 +2192,8 @@ def lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card) -> dict:
                 f"{2 * cfg.param_count()} B in bf16, past one card's memory)")
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
         out[arch] = lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill,
-                               n_decode, tag="families")
-    for arch, _, _, _ in FAMILY_SERVING:
+                               n_decode, tag="families", n_ssd=n_ssd)
+    for arch, *_ in FAMILY_SERVING:
         family_check(T, moe_lib, get_arch(arch), dev, card)
     log(f"[families] phase 22 in {time.perf_counter() - t_phase:.1f} s | {card}")
     return out
@@ -2992,9 +3052,8 @@ def main() -> int:
         f"seconds={fused_s!r}; launches={ops_launches}; loop == fused "
         f"{torch.equal(w_loop, w_fused)}; fused == CPU "
         f"{torch.equal(w_fused.cpu(), w_cpu)} | {card}")
-    assert ops_launches == {"fused_step": 1, "rnl_fire": n_ws,
-                            "fused_block": 0, "fire_block": 0, "fire_float": 0,
-                            "stdp_update": n_ws, "flash_attention": 0}, ops_launches
+    assert ops_launches == {k.name: 0 for k in build.KERNELS} | {
+        "fused_step": 1, "rnl_fire": n_ws, "stdp_update": n_ws}, ops_launches
     assert torch.equal(w_loop, w_fused), "ops: unfused loop and train_volleys differ"
     assert torch.equal(w_fused.cpu(), w_cpu), "ops: card and CPU differ"
     assert not torch.equal(w_fused, w_start)
@@ -3309,6 +3368,7 @@ def main() -> int:
         fused_column, rnl_response, timer, dev, card)
     flash_rows = time_flash(flash_lib, timer, dev, card)
     rows["flash"] = flash_rows[FLASH_TIMED[0][0]]
+    rows["ssd"], err["ssd_scan"] = time_ssd(timer, dev, card)
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
 
@@ -3329,7 +3389,7 @@ def main() -> int:
                      sweeps["grid"], timer, dev, card)
 
     # 22 — the MoE, SSM, hybrid, audio and VLM families on the card
-    lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)
+    families = lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)
 
     # 23 — LM training on the card
     train = lm_training(T, get_arch, build, dev, card, timer)
@@ -3379,6 +3439,17 @@ def main() -> int:
         "bound_by": rows["flash"][3], "library_ms": rows["flash"][4],
         "shape": f"B={LM_BATCH} S={LM_PROMPT} Hq=32 Hkv=8 d=128 bf16 causal "
                  f"(one layer of the {LM_ARCH} prefill)",
+    })
+    k = build.SSD_SCAN
+    entries.append({
+        "name": k.name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k.source}",
+        "replaces": None, "launches": families["zamba2-7b"]["ssd_launches"],
+        "max_abs_err": err[k.name], "ms": rows["ssd"][0], "plain_ms": rows["ssd"][1],
+        "bound_ms": rows["ssd"][2], "bound_by": rows["ssd"][3], "library_ms": None,
+        "shape": "B={} L={} H={} G={} N={} dh={} chunk={} bf16 (one layer of the "
+                 "zamba2-7b-instruct.docs4k prefill); launches: a zamba2-7b "
+                 "prefill's".format(*SSD_TIMED),
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@
 #   flash_attention — the LM's prefill attention (csrc/flash_attention.cu);
 #                  imported by models.layers, not here, so that importing
 #                  the TNN kernels does not import the LM
+#   ssd_scan     — the SSM prefill's chunked SSD scan (csrc/ssd_scan.cu);
+#                  imported by models.ssm, not here, for the same reason
 #   ops          — the public entry points: column_forward, rnl_fire,
 #                  stdp_step, train_volleys
 # ref.py holds the plain oracles; build.py compiles csrc/ with nvcc at

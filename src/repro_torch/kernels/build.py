@@ -44,6 +44,7 @@ MAX_SMEM_BYTES = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def nvcc_path() -> str:
@@ -273,5 +274,18 @@ FLASH_ATTENTION = CudaKernel(
     headers=(),
 )
 
+# a kernel for a jnp path of the JAX package (no bit parity: a tolerance,
+# see kernels/ssd_scan.py); its own roundings are explicit _rn intrinsics
+SSD_SCAN = CudaKernel(
+    name="ssd_scan",
+    source="ssd_scan.cu",
+    symbol="ssd_scan",
+    argtypes=(_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I)
+    + (_L,) * 12 + (_I, _P),
+    replaces="none: src/repro/models/ssm.py ssd_chunked is jnp (no pallas_call)",
+    flags=(),
+    headers=(),
+)
+
 KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, FIRE_FLOAT,
-           STDP_UPDATE, FLASH_ATTENTION)
+           STDP_UPDATE, FLASH_ATTENTION, SSD_SCAN)

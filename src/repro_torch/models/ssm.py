@@ -24,9 +24,10 @@ Numerics are the JAX package's: a bf16 model runs the dual form's
 operands (the decay mask, C B^T and the weighted input) in bf16, their
 products accumulated in f32, and the inter-chunk recurrence in f32;
 softplus is ``logaddexp(x, 0)``.  A float64 model (the CPU reference of
-the card's f32 check) computes all of it in float64.  The decay mask is
-[B, n_chunks, H, q, q]: at chunk 256 a 4032-token prompt of
-zamba2-7b-instruct at batch 8 (H 112) makes it 3.8 GB in f32 on the card.
+the card's f32 check) computes all of it in float64.  The plain scan's
+decay mask is [B, n_chunks, H, q, q]: at chunk 256 a 4032-token prompt of
+zamba2-7b-instruct at batch 8 (H 112) makes it 3.8 GB in f32; on the card
+``ssd_chunked`` runs the scan as one kernel that keeps the mask on chip.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import ssd_scan as ssd_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _acc, _dtype, _is_dtensor, dense_init, rmsnorm
 
@@ -114,6 +116,31 @@ def ssd_chunked(
     compute_dtype: torch.dtype = torch.float32,
 ):
     """Chunked SSD scan.  Returns (y [B, L, H, dh], final_state).
+
+    CUDA tensors in bfloat16 or float32 with no gradient required run the
+    kernel ``csrc/ssd_scan.cu`` (``kernels.ssd_scan``, one launch, the same
+    roundings); everything else runs ``ssd_chunked_plain``: CPU tensors,
+    float64, and autograd (the kernel has no backward).
+    """
+    tensors = (x, dt, A, Bm, Cm) + (() if initial_state is None else (initial_state,))
+    if (x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float32)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
+        return ssd_lib.ssd_scan(x, dt, A, Bm, Cm, chunk, initial_state, compute_dtype)
+    return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk, initial_state, compute_dtype)
+
+
+def ssd_chunked_plain(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    chunk: int,
+    initial_state: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
+):
+    """The chunked SSD scan in plain PyTorch (``ssd_chunked``'s arguments
+    and result).
 
     ``compute_dtype=torch.bfloat16`` rounds the dual form's operands to
     bf16 and accumulates their products in f32; the inter-chunk state

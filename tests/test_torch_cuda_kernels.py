@@ -1040,6 +1040,143 @@ def test_family_smoke_model_on_card_matches_cpu(cuda_device, arch_id, prefill_n,
         assert _rel(full.cpu(), T.forward(cpu, toks, frames=fr)) < 1e-4
 
 
+# ----------------------------------------------------------------- SSD scan
+# (label, b, L, H, G, N, dh, chunk, initial state): the cell's prefill shape
+# at B 2 (4,032 positions: 15 chunks of 256 and one of 192), zamba2-7b's and
+# mamba2-370m's widths, the smoke configs' (the instruct smoke's N 8, G 2),
+# a cached prefill of a prompt shorter than its chunk (chunk = L = 100, in
+# the 128 tile) and a last chunk of one position
+SSD_CASES = [
+    ("docs4k", 2, 4032, 112, 2, 64, 64, 256, False),
+    ("docs4k_state", 2, 4032, 112, 2, 64, 64, 256, True),
+    ("zamba2-7b", 2, 1000, 112, 1, 64, 64, 128, True),
+    ("mamba2-370m", 2, 1000, 32, 1, 128, 64, 128, True),
+    ("smoke", 2, 45, 8, 1, 16, 16, 16, True),
+    ("instruct_smoke", 2, 45, 4, 2, 8, 16, 16, True),
+    ("short_prompt", 2, 100, 112, 2, 64, 64, 100, True),
+    ("ragged_by_one", 1, 513, 112, 2, 64, 64, 256, True),
+]
+
+
+def _ssd_check(ops: dict, chunk: int) -> dict:
+    """One launch of the kernel through ``ssd_chunked`` against the plain
+    scan (``repro_torch.testing.ssd``'s bound; TF32 off for the plain
+    version's f32 products)."""
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssd as ssd_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = build.SSD_SCAN.launches
+    got = ssm.ssd_chunked(**ops, chunk=chunk, compute_dtype=ops["x"].dtype)
+    torch.cuda.synchronize()
+    assert build.SSD_SCAN.launches == before + 1
+    return ssd_test.agreement(got, ops, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: c[0])
+def test_ssd_scan_kernel_matches_plain(cuda_device, case, dtype):
+    """``csrc/ssd_scan.cu`` against ``ssd_chunked_plain`` on the card, x,
+    B and C the split views of one conv output: per element within the
+    f32 sum order's bound of the terms' magnitudes, plus in bf16 one bf16
+    ulp of each of a product's two factors (a score summed in another
+    order, or a mask entry, rounded the other way); the norm within the
+    bound that a single bf16 rounding of mask * scores misses (CPU twin);
+    one launch a call."""
+    from repro_torch.testing import ssd as ssd_test
+
+    _, b, L, H, G, N, dh, chunk, initial = case
+    ops = ssd_test.ssd_inputs(b, L, H, G, N, dh, dtype, cuda_device, seed=L + H,
+                              initial=initial)
+    r = _ssd_check(ops, chunk)
+    assert ssd_test.holds(r), r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("decay", [(-112.0, 0.1), (-1.0, 1e-3)], ids=["fast", "slow"])
+def test_ssd_scan_kernel_at_extreme_decays(cuda_device, decay, dtype):
+    """Decays near 0 (A -112, dt 0.1: e^-11.2 a step, the mask and the
+    state's carry underflow within a chunk) and near 1 (A -1, dt 1e-3),
+    at the cell's widths."""
+    from repro_torch.testing import ssd as ssd_test
+
+    ops = ssd_test.ssd_inputs(2, 1000, 112, 2, 64, 64, dtype, cuda_device, seed=7,
+                              decay=decay)
+    r = _ssd_check(ops, 256)
+    assert ssd_test.holds(r), r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ssd_scan_kernel_against_the_float64_recurrence(cuda_device, dtype):
+    """The kernel and the plain chunked scan against the token-by-token
+    recurrence (``ssd_sequential``) in float64: the kernel's relative
+    error (y and the state) within twice what the plain version reads
+    there (the same roundings; f32 sums in another order)."""
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssd as ssd_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = ssd_test.ssd_inputs(1, 600, 112, 2, 64, 64, dtype, cuda_device, seed=11)
+    got = ssm.ssd_chunked(**ops, chunk=256, compute_dtype=dtype)
+    plain = ssm.ssd_chunked_plain(**ops, chunk=256, compute_dtype=dtype)
+    want = ssm.ssd_sequential(*(ops[k].double() for k in ("x", "dt", "A", "Bm", "Cm",
+                                                          "initial_state")))
+
+    def rel(a, w):
+        return float((a.double() - w).norm() / w.norm())
+
+    for i, what in enumerate(("y", "state")):
+        e_k, e_p = rel(got[i], want[i]), rel(plain[i], want[i])
+        assert e_k <= 2 * e_p, (what, e_k, e_p)
+
+
+def test_ssd_scan_runs_once_a_mamba_layer_in_the_prefill(cuda_device):
+    """The zamba2-7b-instruct smoke model (f32) on the card: a cached
+    prefill and a no-cache forward launch the scan once a mamba layer, a
+    decode step (one step of the recurrence) and a forward under autograd
+    never; the prefill's logits match the CPU's."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch("zamba2-7b-instruct", smoke=True)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = T.Transformer(T.weights(cpu, lambda t: t.detach().to(cuda_device)), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    k = build.SSD_SCAN
+    with torch.inference_mode():
+        before = k.launches
+        c_card, l_card = T.prefill(card, toks[:, :37].to(cuda_device), max_len=40)
+        assert k.launches == before + cfg.n_layers
+        _, l_cpu = T.prefill(cpu, toks[:, :37], max_len=40)
+        assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        before = k.launches
+        T.decode_step(card, c_card, toks[:, 37:38].to(cuda_device))
+        assert k.launches == before
+        T.forward(card, toks.to(cuda_device))
+        assert k.launches == before + cfg.n_layers
+    before = k.launches
+    T.forward(card, toks.to(cuda_device)).float().sum().backward()
+    assert k.launches == before
+
+
+def test_ssd_scan_refuses_bad_operands_on_the_card(cuda_device):
+    from repro_torch.kernels import ssd_scan as ssd_lib
+    from repro_torch.testing import ssd as ssd_test
+
+    ops = ssd_test.ssd_inputs(1, 40, 8, 1, 16, 16, torch.bfloat16, cuda_device)
+    x, dt, A, Bm, Cm, s0 = ops.values()
+    with pytest.raises(ValueError):
+        ssd_lib.ssd_scan(x, dt.cpu(), A, Bm, Cm, 16)
+    with pytest.raises(ValueError):  # chunk past the (16, 16) tile
+        ssd_lib.ssd_scan(x, dt, A, Bm, Cm, 32)
+    with pytest.raises(ValueError):  # rows 2 bytes off 16-byte alignment
+        wide = torch.zeros((1, 40, 8, 17), dtype=torch.bfloat16, device=cuda_device)
+        ssd_lib.ssd_scan(wide[..., 1:], dt, A, Bm, Cm, 16)
+    ssd_lib.ssd_scan(x, dt, A, Bm, Cm, 16, s0)  # well formed
+    torch.cuda.synchronize()
+
+
 # ----------------------------------------------------------------- serving
 def _serving_fleet():
     """Four integer-grid designs (mus 1/1/1, no stabilizer) in two
