@@ -172,13 +172,6 @@ JAX or the JAX package.  Phases, each of which asserts:
     three Rand indices, the normalized TNN and DTCR beside the paper's,
     the TNN ``train_seconds``, the k-means seconds and the DTCR seconds a
     step;
-21. ``costmodel.calibrate`` on the card (peak and bandwidth finite and
-    below the data sheet's, ``fused_eff`` in (0, 50]), then phase 8's
-    integer-grid sweep and phase 18's serving fleet under the calibrated
-    profile, launch counters read around each: ids and weights bit-equal
-    to the constants plan's; each bucket's chosen ``v_blk``, waste cap
-    and predicted us a volley beside its volley-block kernel time (CUDA
-    events); the profile cleared at the end.
 
 22. the LM families on the card, launch counters read around each model:
     ``launch.serve.serve`` at full width (bf16, random weights from a
@@ -235,7 +228,8 @@ JAX or the JAX package.  Phases, each of which asserts:
     exactly; its peak (argument + temp + output - alias) within 10% of
     ``max_memory_allocated`` across that step (reset just before it); its
     roofline terms under a profile of a bf16 ``torch.matmul`` rate (8192^3,
-    CUDA events) and ``calibrate``'s bandwidth probe, ``roofline_fraction``
+    CUDA events) and a streaming bandwidth (an elementwise add, CUDA
+    events), ``roofline_fraction``
     <= 1.05, printed beside phase 23's step time; the same step once more
     under the dry run's counter on the card's tensors (its peak printed:
     what the tracker sees of the real step); (b) five production cells at
@@ -247,7 +241,7 @@ JAX or the JAX package.  Phases, each of which asserts:
     by kind and the analysis row printed.  The phase prints its own
     seconds.
 
-Phases 20, 21, 22, 23 and 24 run after phase 18, before the kernels line (19).
+Phases 20, 22, 23 and 24 run after phase 18, before the kernels line (19).
 The line before the last is the kernels line (JSON); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
@@ -1407,7 +1401,7 @@ def tnn_serving(build, fused_column, simulator, ucr, dev, card, timer) -> dict:
     return out
 
 
-# ------------------------------------- Table II and calibrated plans
+# ---------------------------------------------------------------- Table II
 TABLE2_N, TABLE2_EPOCHS, DTCR_STEPS = 240, 4, 60  # benchmarks/table2_clustering.py
 DTCR_BUDGET_S = 90.0  # card seconds for the seven DTCR fits
 DTCR_WORKERS = 4      # CPU processes fitting the CPU's DTCR copies
@@ -1608,146 +1602,6 @@ def table2(build, simulator, column, ucr, dev, card) -> None:
     assert launches["fused_step"] == len(names) and launches["rnl_fire"] >= len(names)
     assert all(v == 0 for n, v in launches.items()
                if n not in ("fused_step", "rnl_fire")), launches
-
-
-def first_blocks(fused_column, sink: dict):
-    """Wrap ``fit_scan_padded`` and ``fused_block_padded`` so that
-    ``sink[(D, p, q, t_window)]`` keeps a copy of the arguments of each
-    envelope's first volley block; returns the function that unwraps
-    them."""
-    import torch
-
-    orig_fit, orig_block = fused_column.fit_scan_padded, fused_column.fused_block_padded
-    key = [None]
-
-    def fit(w, *a, **k):
-        key[0] = tuple(w.shape) + (k["t_window"],)
-        return orig_fit(w, *a, **k)
-
-    def block(*a, **k):
-        if key[0] not in sink:
-            sink[key[0]] = ([t.clone() if torch.is_tensor(t) else t for t in a], k)
-        return orig_block(*a, **k)
-
-    fused_column.fit_scan_padded, fused_column.fused_block_padded = fit, block
-
-    def unwrap():
-        fused_column.fit_scan_padded, fused_column.fused_block_padded = (
-            orig_fit, orig_block)
-
-    return unwrap
-
-
-def calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
-                     sweep, timer, dev, card) -> None:
-    """Phase 21: ``costmodel.calibrate`` on the card, then phase 8's
-    integer-grid sweep and one pass of phase 18's serving fleet under the
-    calibrated profile: weights and ids bit-equal to the constants plan's.
-    Each bucket's plan beside its first volley block's kernel time (CUDA
-    events, ``Timer``) per volley, for the sweep's buckets and the
-    service's.  Launch counters reset just before the two paths and read
-    just after; the profile is cleared at the end."""
-    import math
-
-    import numpy as np
-    import torch
-    from repro_torch.serve import ClusteringService
-
-    t0 = time.perf_counter()
-    prof = costmodel.calibrate(persist=False)
-    log(f"[calibrate] {json.dumps(prof.to_json())} in "
-        f"{time.perf_counter() - t0!r} s | {card}")
-    assert costmodel.profile() == prof and prof.calibrated
-    assert math.isfinite(prof.hbm_bw) and 0 < prof.hbm_bw < HBM_BYTES_PER_S, prof
-    assert math.isfinite(prof.peak_flops) and 0 < prof.peak_flops < F32_OPS_PER_S, prof
-    assert 0 < prof.fused_eff <= 50, prof
-    try:
-        cfgs, w_init, const = sweep
-        ws = ucr.load("WordSynonyms")
-        n = ws.x.shape[0]
-        blocks = {}  # (D, p, q, t_window) -> its first volley block's arguments
-        for k in build.KERNELS:
-            k.launches = 0
-        unwrap = first_blocks(fused_column, blocks)
-        try:
-            res = simulator.cluster_time_series_many(
-                ws.x, ws.y, cfgs, epochs=EPOCHS, w_init=w_init, max_bucket=8,
-                device="cuda")
-        finally:
-            unwrap()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in build.KERNELS}
-        buckets = backend.envelope_buckets(
-            [(c.p, c.q, c.t_max) for c in cfgs], max_bucket=8, n_volleys=n,
-            epochs=EPOCHS)
-        assert len(buckets) == res[0].buckets, buckets
-        for env, members in buckets:
-            plan = res[members[0]].plan
-            a, k = blocks[(len(members),) + env]
-            ms = timer(lambda: fused_column.fused_block_padded(*a, **k), 20)
-            log(f"[calibrated] grid sweep bucket {env} D={len(members)}: "
-                f"v_blk={plan['v_blk']} (constants "
-                f"{const[members[0]].plan['v_blk']}) waste_cap={plan['waste_cap']!r} "
-                f"predicted us/volley={plan['predicted_step_us']!r} measured "
-                f"(kernel events, its first block) us/volley="
-                f"{1e3 * ms / a[1].shape[1]!r} | {card}")
-            assert plan["source"] == "costmodel" and plan["profile"] == prof.name
-        same = [np.array_equal(a.assignments, b.assignments)
-                and torch.equal(a.params["w"], b.params["w"])
-                for a, b in zip(res, const)]
-        log(f"[calibrated] grid sweep: {res[0].buckets} buckets (constants "
-            f"{const[0].buckets}), train_seconds={res[0].train_seconds!r} "
-            f"(constants, phase 8: {const[0].train_seconds!r}); ids and weights "
-            f"bit-equal to the constants plan's for {sum(same)} of {len(same)} "
-            f"designs; launches={launches} | {card}")
-        assert all(same), same
-        assert launches["fused_block"] > 0 and launches["fire_block"] > 0, launches
-        assert launches["fused_step"] == launches["rnl_fire"] == 0, launches
-
-        fleet, w0 = serving_fleet(grid=True)
-        stream = serving_stream(fleet, ucr)
-        kw = dict(batch_size=SERVE_BATCH, weights=w0)
-        with costmodel.override(None):  # the constants plan, construction to drain
-            svc_c = ClusteringService(fleet, device=dev, **kw)
-            svc_c.warmup()
-            t0 = time.perf_counter()
-            h_c = serve_all(svc_c, stream)
-            wall_c = time.perf_counter() - t0
-        svc_p = ClusteringService(fleet, device=dev, **kw)
-        svc_p.warmup()
-        blocks = {}
-        for k in build.KERNELS:
-            k.launches = 0
-        unwrap = first_blocks(fused_column, blocks)
-        try:
-            t0 = time.perf_counter()
-            h_p = serve_all(svc_p, stream)
-            torch.cuda.synchronize()
-            wall_p = time.perf_counter() - t0
-        finally:
-            unwrap()
-        launches = {k.name: k.launches for k in build.KERNELS}
-        assert_clean(svc_p, len(stream))
-        for b in svc_p.buckets():
-            f = b["fit_plan"]
-            first = blocks.get((len(b["designs"]),) + tuple(b["envelope"]))
-            measured = "not measured (no re-fit)"
-            if first is not None:
-                a, k = first
-                ms = timer(lambda: fused_column.fused_block_padded(*a, **k), 20)
-                measured = repr(1e3 * ms / a[1].shape[1])
-            log(f"[calibrated] serving bucket {b['envelope']} D={len(b['designs'])}: "
-                f"re-fit v_blk={f['v_blk']} waste_cap={f['waste_cap']!r} "
-                f"predicted us/volley={f['predicted_step_us']!r} measured "
-                f"(kernel events, its first block) us/volley={measured} | {card}")
-            assert f["source"] == "costmodel"
-        log(f"[calibrated] serving {len(stream)} requests: "
-            f"{len(stream) / wall_p!r} requests/s (constants plan "
-            f"{len(stream) / wall_c!r}, host clock); launches={launches} | {card}")
-        assert launches["fire_block"] > 0 and launches["fused_block"] > 0, launches
-        same_service(svc_c, svc_p, h_c, h_p, "serving, calibrated vs constants plan")
-    finally:
-        costmodel.set_profile(None)
 
 
 def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
@@ -2489,33 +2343,64 @@ def lm_training(T, get_arch, build, dev, card, timer) -> dict:
     return out
 
 
+def event_ms(fn, reps: int = 5) -> float:
+    """Least device time of one call of ``fn`` between two CUDA events,
+    after a warm-up call."""
+    import math
+
+    import torch
+
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e))
+    return best
+
+
 def bf16_matmul_rate(dev) -> float:
     """FLOP/s of one 8192^3 bf16 ``torch.matmul`` (least of 5 CUDA-event
     timings after a warm-up)."""
     import torch
 
-    from repro_torch.roofline import costmodel
-
     n = 8192
     a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
     b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
-    ms = costmodel._event_ms(lambda: a @ b)
+    ms = event_ms(lambda: a @ b)
     del a, b
     return 2.0 * n**3 / (ms * 1e-3)
 
 
+def hbm_bw(dev) -> float:
+    """Streaming bandwidth of an elementwise add over 256 MiB in and 256
+    MiB out: more than 4x the card's L2, so the reads come from HBM."""
+    import torch
+
+    props = torch.cuda.get_device_properties(dev)
+    n = max(64 * 2**20, int(props.L2_cache_size))  # f32: 4 n B >= 4x L2
+    x = torch.zeros(n, device=dev)
+    y = torch.empty_like(x)
+    ms = event_ms(lambda: torch.add(x, 1.0, out=y))
+    return 2.0 * 4.0 * n / (ms * 1e-3)
+
+
 def dry_profile(dev, card):
     """The roofline profile of phase 24: a measured bf16 matmul rate and
-    ``calibrate``'s bandwidth probe; no link (one card)."""
+    streaming bandwidth; no link (one card)."""
     import dataclasses
 
     from repro_torch.roofline import costmodel
 
-    rate, bw = bf16_matmul_rate(dev), costmodel._probe_hbm_bw(dev)
+    rate, bw = bf16_matmul_rate(dev), hbm_bw(dev)
     log(f"[dryrun] profile: bf16 matmul 8192^3 {rate!r} FLOP/s, streaming {bw!r} B/s "
         f"(CUDA events) | {card}")
     return dataclasses.replace(costmodel.PROFILES["h100-sxm"], name="h100-bf16-measured",
-                               peak_flops=rate, hbm_bw=bw, calibrated=True)
+                               peak_flops=rate, hbm_bw=bw)
 
 
 def dry_vs_card(T, get_arch, dev, card, prof, step_ms) -> dict:
@@ -3380,13 +3265,6 @@ def main() -> int:
 
     # 20 — the paper's Table II on the card: k-means, the TNN column, DTCR
     table2(build, simulator, column, ucr, dev, card)
-
-    # 21 — calibration, then the grid sweep and the serving fleet under it
-    from repro_torch.core import backend
-    from repro_torch.roofline import costmodel
-
-    calibrated_plans(build, fused_column, simulator, backend, costmodel, ucr,
-                     sweeps["grid"], timer, dev, card)
 
     # 22 — the MoE, SSM, hybrid, audio and VLM families on the card
     families = lm_families(T, serve_lib, moe_lib, get_arch, build, dev, card)

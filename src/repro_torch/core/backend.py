@@ -17,13 +17,12 @@
   to their plain PyTorch versions (``'reference'``).  A CUDA tensor on any
   other card raises: the kernels are built for sm_90a only.
 
-* **Padded-scan policy**: ``volley_block`` / ``execution_plan`` (the
-  cost model's plan under an active device calibration, the constants
-  plan without one; ``roofline/costmodel.py``), ``assign_lowering``, the
-  degradation ladder (``lowering_ladder``, ``cycle_exact``) and the
-  envelope bucket policy (``envelope_buckets``).  The sweep and network
-  layers call ``fused_column.fit_scan_padded`` / ``assign_padded``
-  directly, with the ``v_blk`` of their plan.
+* **Padded-scan policy**: one policy, the JAX package's constants
+  (``roofline/costmodel.py``): ``volley_block`` / ``execution_plan``,
+  ``assign_lowering``, the degradation ladder (``lowering_ladder``,
+  ``cycle_exact``) and the envelope bucket policy (``envelope_buckets``).
+  The sweep and network layers call ``fused_column.fit_scan_padded`` /
+  ``assign_padded`` directly, with the ``v_blk`` of their plan.
 
 * **Resolution**: ``resolve(mode, cfg, training=...)`` maps the public
   ``mode`` knob to a registry name; 'auto' keeps the paper's hybrid
@@ -96,32 +95,12 @@ def volley_block(
 
 
 def execution_plan(
-    kind: str,
-    lowering: str,
-    d: int,
-    p_pad: int,
-    q_pad: int,
-    t_window: int,
-    n_volleys: int,
-    epochs: int = 1,
-    *,
-    w_max: Optional[int] = None,
-    response: str = "rnl",
-):
-    """The ONE policy front door: the ``ExecutionPlan`` of a padded scan
-    of ``d`` designs in a (p_pad, q_pad, t_window) envelope over
-    ``n_volleys`` x ``epochs``.  With a device calibration active
-    (``costmodel.load_or_calibrate()``; launchers opt in, libraries and
-    tests never do implicitly) the cost model chooses it; without one it
-    is the constants plan, exactly the schedule of an uncalibrated host.
-    A plan changes the blocking only, never a result.  ``w_max`` and
-    ``response`` complete the JAX package's signature: the kernel's
-    slope-form cost depends on neither (an SNL scan arrives here with
-    ``lowering='reference'``)."""
-    return costmodel.choose_plan(
-        kind, lowering, int(d), int(p_pad), int(q_pad), int(t_window),
-        int(n_volleys), int(epochs),
-    )
+    kind: str, lowering: str, d: int, n_volleys: int
+) -> costmodel.ExecutionPlan:
+    """The ``ExecutionPlan`` of a padded scan of ``d`` designs over
+    ``n_volleys`` volleys: the constants plan.  A plan changes the
+    blocking only, never a result."""
+    return costmodel.constants_plan(kind, lowering, d, n_volleys)
 
 
 def assign_lowering(response: str, w: torch.Tensor) -> str:
@@ -207,7 +186,7 @@ def cycle_exact(cfg: ColumnConfig, w0) -> bool:
     return bool(torch.all(w0 == torch.round(w0)))
 
 
-# ---------------------------------------------------- bucket / shard policy
+# ----------------------------------------------------------- bucket policy
 # A design joins a shared padding envelope only while padding inflates no
 # member's per-volley fire volume (p * q * t_max) beyond this factor:
 # padded work recurs every volley, so a small design must not ride a
@@ -219,33 +198,19 @@ def envelope_buckets(
     shapes: Sequence[tuple[int, int, int]],
     waste_cap: Optional[float] = None,
     max_bucket: Optional[int] = None,
-    n_volleys: Optional[int] = None,
-    epochs: int = 1,
 ) -> list[tuple[tuple[int, int, int], list[int]]]:
     """Pack (p, q, t_max) design shapes into shared padding envelopes.
 
     Greedy, largest fire volume first: a design joins the first bucket
     whose grown envelope (the elementwise max) keeps every member's
-    volume within ``waste_cap`` and that holds fewer than ``max_bucket``
-    designs (None: unbounded).  ``waste_cap`` None: with a device
-    calibration active AND a stream length (``n_volleys`` x ``epochs``),
-    the cost model's break-even (``costmodel.choose_waste_cap``: padding
-    waste recurs every volley, a shared envelope saves one bucket's fixed
-    cost); otherwise ``ENVELOPE_WASTE_CAP``.  Returns ``[(envelope,
-    member_indices), ...]``; every index lands in exactly one bucket.
-    Bucketing never changes a result: a design trains the same under any
-    envelope that contains it.
+    volume within ``waste_cap`` (None: ``ENVELOPE_WASTE_CAP``) and that
+    holds fewer than ``max_bucket`` designs (None: unbounded).  Returns
+    ``[(envelope, member_indices), ...]``; every index lands in exactly
+    one bucket.  Bucketing never changes a result: a design trains the
+    same under any envelope that contains it.
     """
     if waste_cap is None:
         waste_cap = ENVELOPE_WASTE_CAP
-        if n_volleys is not None and shapes:
-            waste_cap = costmodel.choose_waste_cap(
-                None, len(shapes),
-                max(p for (p, _, _) in shapes),
-                max(q for (_, q, _) in shapes),
-                max(t for (_, _, t) in shapes),
-                n_volleys=int(n_volleys), epochs=int(epochs),
-            )
     vols = [p * q * t for (p, q, t) in shapes]
     order = sorted(range(len(shapes)), key=lambda i: -vols[i])
     buckets: list[tuple[tuple[int, int, int], list[int]]] = []
@@ -262,14 +227,6 @@ def envelope_buckets(
         else:
             buckets.append(((p, q, t), [i]))
     return buckets
-
-
-def design_shards(d: int) -> int:
-    """Cards a bucket's design axis of length ``d`` is split across: 1
-    (``costmodel.choose_shards``).  The port runs a sweep on one card;
-    splitting the (collective-free) design axis across cards is queued
-    work."""
-    return costmodel.choose_shards(d)
 
 
 # ------------------------------------------------------------- generic fit

@@ -182,15 +182,10 @@ def _fused_group_key(layer: LayerConfig):
     return (layer.columns, c.neuron.w_max, c.neuron.response, c.wta.k, c.stdp)
 
 
-def _fused_envelopes(
-    layers: list[LayerConfig],
-    n_volleys: Optional[int] = None,
-    epochs: int = 1,
-) -> list[tuple[int, int, int]]:
+def _fused_envelopes(layers: list[LayerConfig]) -> list[tuple[int, int, int]]:
     """Per-layer (p, q, t_window) padding envelope, in input order:
     layers group by ``_fused_group_key``, and within a group pack into
-    envelopes by ``backend.envelope_buckets`` (the stream length lets a
-    calibrated host derive the waste cap).  No result depends on the
+    envelopes by ``backend.envelope_buckets``.  No result depends on the
     envelope."""
     by_key: dict[tuple, list[int]] = {}
     for i, l in enumerate(layers):
@@ -201,9 +196,7 @@ def _fused_envelopes(
             (layers[i].column.p, layers[i].column.q, layers[i].column.t_max)
             for i in idxs
         ]
-        for env, members in backend_lib.envelope_buckets(
-            shapes, n_volleys=n_volleys, epochs=epochs
-        ):
+        for env, members in backend_lib.envelope_buckets(shapes):
             for m in members:
                 envs[idxs[m]] = env
     return envs
@@ -231,10 +224,7 @@ def _fit_layer_fused(
     xs = torch.full(hc.shape[:-1] + (p_env,), t_window, dtype=TIME_DTYPE,
                     device=w.device)
     xs[..., : cfg.p] = hc
-    plan = backend_lib.execution_plan(
-        "fit", lowering, c, p_env, q_env, t_window, hc.shape[0], epochs,
-        w_max=cfg.neuron.w_max, response=cfg.neuron.response,
-    )
+    plan = backend_lib.execution_plan("fit", lowering, c, hc.shape[0])
     w_new = fused_column.fit_scan_padded(
         w_pad, xs, [cfg.neuron.threshold] * c, [cfg.t_max] * c, [cfg.q] * c,
         t_window=t_window, w_max=cfg.neuron.w_max, wta_k=cfg.wta.k,
@@ -308,8 +298,7 @@ def fit_greedy(
     fused_idx = [i for i, nm in enumerate(names) if nm == "pallas"]
     env_by_layer = dict(zip(
         fused_idx,
-        _fused_envelopes([cfg.layers[i] for i in fused_idx],
-                         n_volleys=h.shape[0], epochs=epochs),
+        _fused_envelopes([cfg.layers[i] for i in fused_idx]),
     ))
 
     new_params = []

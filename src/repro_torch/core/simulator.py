@@ -278,10 +278,7 @@ def _sweep_bucket(
     q_actives = [cfgs[i].q for i in idxs]
     t = obs.mark("sweep.pad", t)
 
-    plan = backend_lib.execution_plan(
-        "fit", lowering, db, p_env, q_env, t_window, n, epochs,
-        w_max=c0.neuron.w_max, response=c0.neuron.response,
-    )
+    plan = backend_lib.execution_plan("fit", lowering, db, n)
     t = obs.mark("sweep.plan", t)
     w = fused_column.fit_scan_padded(
         w0, xs, thresholds, t_maxes, q_actives,
@@ -523,9 +520,6 @@ def _cluster_time_series_many(
     buckets = backend_lib.envelope_buckets(
         [(c.p, c.q, c.t_max) for c in cfgs],
         waste_cap=waste_cap, max_bucket=max_bucket,
-        # the stream's length lets a calibrated host derive the waste cap
-        # (an explicit waste_cap wins; the constants cap otherwise)
-        n_volleys=x.shape[0], epochs=epochs,
     )
     out: list[Optional[SweepOutcome]] = [None] * d
     t0 = time.perf_counter()

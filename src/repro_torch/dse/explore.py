@@ -25,11 +25,8 @@ same API and semantics except:
   seeded from the run's seed and the candidate's index), not from the
   JAX package's generator; the journal header names that initializer,
   so a journal of the JAX package is refused on resume;
-* there is no persistent compile cache.  A journaled run loads a device
-  calibration persisted beside the built kernels
-  (``costmodel.load_profile``: disk only, it never probes);
-  ``meta['profile']`` names the active profile (``''``: the constants
-  plan) and ``meta['shards']`` is 1 (one card).
+* there is no persistent compile cache, every schedule is the constants
+  plan, and ``meta['shards']`` is 1 (one card).
 """
 from __future__ import annotations
 
@@ -50,7 +47,6 @@ from repro_torch.distributed.straggler import StepMonitor
 from repro_torch.dse import journal as journal_lib
 from repro_torch.dse.pareto import DesignPoint, pareto_front
 from repro_torch.dse.space import DesignSpace, candidate_config
-from repro_torch.roofline import costmodel
 
 # Names ``initial_weights`` in the journal header: a journal whose header
 # names another initializer (the JAX package's has none) is refused.
@@ -239,11 +235,6 @@ def _explore(
              "init": INIT},
             resume=resume,
         )
-        # a calibration persisted beside the built kernels (costmodel
-        # calibrated once per host) moves every schedule seam below from
-        # the constants to the cost model's plan; disk only, exploration
-        # never probes the card itself
-        costmodel.load_profile()
     mon = monitor if monitor is not None else StepMonitor(
         threshold=4.0, warmup=3
     )
@@ -399,7 +390,6 @@ def _explore(
             "stalls": [dataclasses.asdict(ev) for ev in mon.events],
             "resumed": resumed,
             "journal": jr.path if jr is not None else None,
-            "profile": getattr(costmodel.profile(), "name", ""),
         },
     )
     obs.mark("explore.rank", t1)

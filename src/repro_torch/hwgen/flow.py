@@ -7,8 +7,8 @@ generation -> synthesis -> place-and-route, producing report files and a
 * ``CadenceExecutor`` shells out to Genus/Innovus using the generated TCL —
   the real TNNGen path; it raises immediately here (no EDA install).
 * ``ModelExecutor`` (default) evaluates the analytical PDK silicon models
-  calibrated to the paper's own post-layout tables (see pdk.py), writes
-  tool-style report files, and reports flow runtimes from the calibrated
+  fitted to the paper's own post-layout tables (see pdk.py), writes
+  tool-style report files, and reports flow runtimes from the fitted
   runtime model.  A deterministic per-design jitter (seeded by the design
   hash) models P&R noise at the magnitude the paper's Table V residuals
   exhibit (~±2% for large designs).
@@ -62,7 +62,7 @@ class CadenceExecutor:
 
 
 class ModelExecutor:
-    """Analytical EDA executor calibrated to the paper's published results."""
+    """Analytical EDA executor fitted to the paper's published results."""
 
     def __init__(self, jitter: float = 0.02, seed: int = 0):
         self.jitter = jitter
@@ -91,7 +91,7 @@ class ModelExecutor:
             top = f"tnn_column_{spec.name}"
             with open(os.path.join(rep, f"{top}_{library}_pnr_summary.rpt"), "w") as f:
                 f.write(
-                    "# post-P&R summary (ModelExecutor — calibrated to paper tables)\n"
+                    "# post-P&R summary (ModelExecutor — fitted to paper tables)\n"
                     f"design        : {top}\nlibrary       : {library}\n"
                     f"synapses      : {s}\nflops         : {stats['flops']}\n"
                     f"total area    : {area:.3f} um^2\n"

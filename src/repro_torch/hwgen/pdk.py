@@ -3,7 +3,7 @@
 The real TNNGen invokes Cadence Genus/Innovus against these libraries.  That
 toolchain is proprietary and unavailable offline, so this module carries the
 paper's *own measured results* (Tables III and IV — post-place-and-route
-leakage and die area for the seven UCR column designs) as calibration
+leakage and die area for the seven UCR column designs) as anchor
 points, plus least-squares linear models fitted to them.  ``flow.py`` uses
 these models as its analytical "EDA executor"; the paper itself demonstrates
 (Table V, Fig. 4) that silicon area/leakage of these designs is linear in
@@ -14,7 +14,7 @@ in mW and converted here); runtimes in seconds.
 
 
 The port's own copy of the JAX package's ``hwgen/pdk.py``: the same
-calibration points and models.
+anchor points and models.
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ class LibraryModel:
     """Silicon model for one cell library.
 
     Area/leakage interpolate monotonically THROUGH the paper's seven
-    post-layout calibration points (exact at the published designs) and
+    post-layout anchor points (exact at the published designs) and
     extrapolate linearly outside with the end-segment slope — the paper's
     own Table V shows pure linear regression deviates up to ~30% for the
     smallest designs, so the flow "ground truth" uses the table itself; the
@@ -82,14 +82,14 @@ class LibraryModel:
     """
 
     name: str
-    cal_syn: tuple          # calibration synapse counts (ascending)
+    cal_syn: tuple          # anchor synapse counts (ascending)
     cal_area: tuple         # um^2 at cal_syn
     cal_leak: tuple         # uW at cal_syn
     area_per_syn: float     # fitted um^2 / synapse (reporting)
     area_base: float
     leak_per_syn: float     # fitted uW / synapse (reporting)
     leak_base: float
-    # runtime models (see flow.py for the calibration discussion):
+    # runtime models (see flow.py for how they were fitted):
     synth_base_s: float
     synth_per_syn_s: float
     pnr_base_s: float
@@ -121,7 +121,7 @@ class LibraryModel:
 def _build_models() -> dict:
     syn = np.array([s for _, s in PAPER_DESIGNS], np.float64)
     models = {}
-    # Runtime calibration (absolute values are not machine-readable from
+    # Runtime fit (absolute values are not machine-readable from
     # Fig. 3; the model is pinned to the paper's *stated* relations):
     #   - TNN7 logic synthesis is ~3x faster than ASAP7 ([8], confirmed §III-C)
     #   - TNN7 P&R averages ~32% faster than ASAP7 (Fig. 3)

@@ -1,3 +1,2 @@
-# Execution policy of the padded fused scans (see costmodel.py).  The
-# module is not imported here, so that ``python -m
-# repro_torch.roofline.costmodel`` runs it as its only copy.
+# The padded fused scans' schedule constants and the roofline's device
+# peaks (costmodel.py), and the dry run's roofline analysis (analysis.py).

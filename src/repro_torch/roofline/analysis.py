@@ -2,11 +2,11 @@
 
 Port of the JAX package's ``roofline/analysis.py``, with the same terms
 and formulas.  The peaks come from a ``costmodel.DeviceProfile``: the
-explicit profile, else the active calibration (``costmodel.calibrate`` /
-``load_profile``), else the port's ``PROFILES['h100-sxm']``.  That
-profile's ``peak_flops`` (and ``calibrate``'s) is the f32 rate outside the
-tensor cores, so the compute term of a bf16 cell is pessimistic unless the
-caller passes a profile whose peak is a measured bf16 rate.  A profile
+explicit profile, else the active one (``costmodel.override``), else
+the port's ``PROFILES['h100-sxm']``.  That profile's ``peak_flops`` is
+the f32 rate outside the tensor cores, so the compute term of a bf16
+cell is pessimistic unless the caller passes a profile whose peak is a
+measured bf16 rate.  A profile
 with no link bandwidth (``link_bw`` 0: every one-card profile) gives a
 NaN collective term, ``dominant`` is taken over compute and memory, and
 ``note`` says so; no interconnect figure is assumed.
@@ -48,7 +48,7 @@ def peaks(
     """``(peak_flops, hbm_bw, link_bw, profile_name)`` for the analysis.
 
     Resolution order: explicit ``prof`` argument, then the active
-    calibration (``costmodel.profile()``), then ``'h100-sxm'``.  A profile
+    profile (``costmodel.profile()``), then ``'h100-sxm'``.  A profile
     without a link bandwidth gives ``link_bw`` 0.
     """
     p = prof if prof is not None else costmodel.profile()

@@ -171,7 +171,7 @@ class ServeStats:
     wal_records: int      # WAL re-fits not yet covered by a snapshot
     replayed: int         # WAL re-fits replayed during recover()
     # per-bucket ExecutionPlan.meta() dicts — ({assign}, {fit|None}) per
-    # bucket (the constants plan: the port has no device calibration)
+    # bucket (the constants plan)
     plans: tuple = ()
 
 
@@ -385,7 +385,7 @@ class ClusteringService:
         self._buckets: list[_Bucket] = []
         self._route: dict[str, tuple[_Bucket, int]] = {}
         for bi, (env, members) in enumerate(buckets):
-            p_env, q_env, t_window = env
+            p_env, q_env, _ = env
             w0 = np.zeros((len(members), p_env, q_env), np.float32)
             for lane, i in enumerate(members):
                 c = cfgs[i]
@@ -405,19 +405,10 @@ class ClusteringService:
                 torch.from_numpy(w0).to(self.device),
             )
             bucket.asg_plan = backend_lib.execution_plan(
-                "assign", bucket.asg_lowering, len(members),
-                p_env, q_env, t_window, self.batch_size, 1,
-                w_max=self._statics["w_max"],
-                response=self._statics["response"],
-            )
+                "assign", bucket.asg_lowering, len(members), self.batch_size)
             if self.refit_every > 0:
                 bucket.fit_plan = backend_lib.execution_plan(
-                    "fit", bucket.fit_lowering, len(members),
-                    p_env, q_env, t_window,
-                    self.refit_window, self.refit_epochs,
-                    w_max=self._statics["w_max"],
-                    response=self._statics["response"],
-                )
+                    "fit", bucket.fit_lowering, len(members), self.refit_window)
             self._buckets.append(bucket)
             for lane, i in enumerate(members):
                 self._route[names[i]] = (bucket, lane)
@@ -968,12 +959,8 @@ class ClusteringService:
         input as it is, so a failed or discarded attempt never touches
         the last-good weights).  Ends with a device synchronisation, so
         the watchdog times the re-fit and not its launch."""
-        p_env, q_env, t_window = bucket.envelope
         plan = backend_lib.execution_plan(
-            "fit", lowering, len(bucket.names), p_env, q_env, t_window,
-            xs_np.shape[0], self.refit_epochs,
-            w_max=self._statics["w_max"], response=self._statics["response"],
-        )
+            "fit", lowering, len(bucket.names), xs_np.shape[0])
         w_new = fused_column.fit_scan_padded(
             bucket.w, torch.from_numpy(xs_np).to(self.device),
             bucket.thresholds, bucket.t_maxes, bucket.q_actives,

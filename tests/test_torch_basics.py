@@ -180,7 +180,6 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(monkeypatch):
 def test_baselines_and_calibration_without_device_raise_on_a_host_without_cuda(
         monkeypatch):
     from repro_torch.clustering import dtcr, kmeans
-    from repro_torch.roofline import costmodel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).normal(size=(6, 8))
@@ -190,6 +189,3 @@ def test_baselines_and_calibration_without_device_raise_on_a_host_without_cuda(
         dtcr.fit_predict(x, dtcr.DTCRConfig(steps=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dtcr.init_params(torch.Generator().manual_seed(0), dtcr.DTCRConfig())
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        costmodel.calibrate(persist=False)
-    assert costmodel.profile() is None

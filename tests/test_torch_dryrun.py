@@ -200,9 +200,10 @@ def test_dryrun_cell_on_tiny_mesh(port_cell):
 
 def _profiles(link_bw: float):
     kw = dict(name="equal", device_kind="test", peak_flops=1.5e14, hbm_bw=2.0e12,
-              link_bw=link_bw, dispatch_s=1e-5, footprint_bytes=1e6)
-    return (costmodel.DeviceProfile(platform="cuda", bucket_s=1e-3, **kw),
-            jcostmodel.DeviceProfile(platform="tpu", compile_s=1.0, **kw))
+              link_bw=link_bw)
+    return (costmodel.DeviceProfile(platform="cuda", **kw),
+            jcostmodel.DeviceProfile(platform="tpu", compile_s=1.0, dispatch_s=1e-5,
+                                     footprint_bytes=1e6, **kw))
 
 
 def _cells(port_cell) -> list:

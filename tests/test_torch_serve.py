@@ -564,7 +564,7 @@ def test_launches_per_batch_and_per_refit_are_pinned(monkeypatch, epochs):
     stats = service.stats()
     assert stats.served == 72 and not stats.failed and stats.refits >= 2
     assert all(b.asg_lowering == "cuda" for b in service._buckets)
-    v_blk = backend.execution_plan("fit", "cuda", 2, P, 2, T_MAX, 16).v_blk
+    v_blk = backend.execution_plan("fit", "cuda", 2, 16).v_blk
     assert v_blk == 16
     assert counts["fire_block"] == stats.batches
     assert counts["fused_block"] == stats.refits * epochs * (16 // v_blk)

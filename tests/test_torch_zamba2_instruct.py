@@ -1,5 +1,5 @@
 """Zamba2 as published (``zamba2-7b-instruct``, a port-only id): the port
-against its plain reference (``models/zamba2_reference.py``) at a small
+against its plain reference (``nspubench/reference/zamba2.py``) at a small
 instruct-shaped size on the CPU in float64, and the reference against
 ``transformers``' ``Zamba2ForCausalLM`` on the same state dict.
 
@@ -19,13 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from nspubench.reference import zamba2 as R
 from repro_torch import configs, obs
 from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.launch import serve as serve_lib
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models import zamba2
-from repro_torch.models import zamba2_reference as R
 
 ARCH = "zamba2-7b-instruct"
 
