@@ -137,7 +137,12 @@ JAX or the JAX package.  Phases, each of which asserts:
     prefill's shape (B 8 x 4,032, H 112, G 2, N 64, dh 64, chunks of
     256) through ``ssd_chunked``, held to its plain version per element
     and in the norm (``repro_torch.testing.ssd``), beside the plain
-    version and its bound (bytes: x, B, C, dt in, y and the state out).
+    version and its bound (bytes: x, B, C, dt in, y and the state out);
+    then the causal conv kernel (bf16) at the same prefill's shape (B 8 x
+    4,032, C 7,424, the in_proj output's x | B | C columns, with the
+    layer's bias) through ``_causal_conv``, bit-equal to its plain
+    version (out and new state), beside the plain version and its bound
+    (bytes: u in, out written once).
 
 18. the TNN serving path, launch counters read around it: the streaming
     ``serve.ClusteringService`` over the seven Table II designs at
@@ -180,8 +185,9 @@ JAX or the JAX package.  Phases, each of which asserts:
     cut is printed), mamba2-370m (48), zamba2-7b (81), whisper-medium (24 +
     24, zero frames) and qwen2-vl-7b (28): flash launches per prefill
     (16, 1, 0, 13, 72, 28; whisper 24 more per decode step, its
-    cross-attention), SSD scan launches per prefill (mamba2-370m 48,
-    zamba2-7b 81: one a mamba layer; none a decode step), nothing else
+    cross-attention), SSD scan and causal conv launches per prefill
+    (mamba2-370m 48, zamba2-7b 81 each: one a mamba layer; none a decode
+    step), nothing else
     launched, prefill ms, decode ms per
     token, peak device memory, and one prefill and four decode steps
     under ``torch.profiler`` (device busy and idle share); then each
@@ -274,7 +280,8 @@ DSE_CPU_CHECKED = (10, 22)
 # the LM serving path: granite-3-8b's prefill shape
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "granite-3-8b", 4, 2048, 16
 # phase 22: (arch id, layers served (None: all), flash launches per prefill,
-# per decode step, SSD scan launches per prefill: one a mamba layer)
+# per decode step, SSD scan and causal conv launches per prefill: one of
+# each a mamba layer)
 FAMILY_SERVING = (
     ("olmoe-1b-7b", None, 16, 0, 0),
     ("kimi-k2-1t-a32b", 1, 1, 0, 0),  # 61 layers of 384 experts: ~2 TB in bf16
@@ -1610,7 +1617,8 @@ def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
     depth; phase 22: each family), launch counters reset just before it
     and read just after: ``n_prefill`` flash launches a prefill (default
     one a layer) and ``n_decode`` a decode step, ``n_ssd`` SSD scan
-    launches a prefill (none a decode step), nothing else; then again,
+    launches and as many causal conv launches a prefill (one each a mamba
+    layer; none a decode step), nothing else; then again,
     warm; then one prefill and four decode steps profiled.  Returns its
     numbers."""
     import torch
@@ -1636,15 +1644,17 @@ def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
         f"{r.prefill_s * 1e3!r} ms, {LM_TOKENS} tokens, decode "
         f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches} (flash: "
         f"{n_prefill} a prefill + {LM_TOKENS - 1} x {n_decode} a decode step; "
-        f"ssd_scan: {n_ssd} a prefill); peak "
+        f"ssd_scan and causal_conv: {n_ssd} a prefill each); peak "
         f"device memory {peak} B; logits finite={finite} | {card}")
     log(f"[{tag}] sample generations: {r.generations[:2, :8].tolist()}")
     assert launches == {k.name: 0 for k in build.KERNELS} | {
-        "flash_attention": want, "ssd_scan": n_ssd}, (cfg.name, launches, want, n_ssd)
+        "flash_attention": want, "ssd_scan": n_ssd, "causal_conv": n_ssd}, (
+        cfg.name, launches, want, n_ssd)
     assert finite and r.generations.shape == (LM_BATCH, LM_TOKENS)
     assert r.prefill_logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded)
     assert int(r.generations.max()) < cfg.vocab_size
     out = dict(launches=launches["flash_attention"], ssd_launches=launches["ssd_scan"],
+               conv_launches=launches["causal_conv"],
                peak=peak, params=n_params,
                prefill_ms=r.prefill_s * 1e3, decode_ms=r.decode_s_per_token * 1e3)
     del r
@@ -1928,6 +1938,49 @@ def time_ssd(timer, dev, card) -> tuple:
         f"version: {r} (y, state, norm <= 1) | {card}")
     assert ssd_test.holds(r), ("ssd_scan differs", r)
     return (ms, plain_ms, b_ms, by), r["max_abs"]
+
+
+# phase 17: the causal conv at the same prefill's shape (b, L, d_inner,
+# G * N, SSD heads): C = 7,424 channels of 14,704-wide in_proj rows
+CONV_TIMED = (8, 4032, 7168, 128, 112)
+
+
+def time_conv(timer, dev, card) -> tuple:
+    """The causal conv kernel (bf16) at ``CONV_TIMED`` through
+    ``_causal_conv``, on the in_proj output's x | B | C columns with a
+    bias, from no state (the no-cache forward) and from a state (a cached
+    prefill): bit-equal to the plain version, then timed beside it and its
+    bound (bytes: u read once, out written once).  Returns (ms, plain ms,
+    bound ms, what bounds it)."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    b, L, di, gn, heads = CONV_TIMED
+    c = di + 2 * gn
+    g = torch.Generator(device=dev).manual_seed(L)
+    bf = torch.bfloat16
+    proj = torch.randn((b, L, di + c + heads), generator=g, device=dev).to(bf)
+    u = proj[..., di: di + c]
+    w = (torch.randn((4, c), generator=g, device=dev) * 0.5).to(bf)
+    bias = torch.randn((c,), generator=g, device=dev).to(bf)
+    state = torch.randn((b, 3, c), generator=g, device=dev).to(bf)
+    n_bytes = 2 * b * L * c * 2
+    b_ms, by = bound_ms(n_bytes, 0)
+    for st in (None, state):
+        got = ssm._causal_conv(u, w, st, bias)
+        want = ssm._causal_conv_plain(u, w, st, bias)
+        equal = all(torch.equal(x.view(torch.int16), y.contiguous().view(torch.int16))
+                    for x, y in zip(got, want))
+        del got, want
+        ms = timer(lambda: ssm._causal_conv(u, w, st, bias), 50)
+        plain_ms = timer(lambda: ssm._causal_conv_plain(u, w, st, bias), 5, warmup=1)
+        log(f"[time] causal_conv zamba2-7b-instruct prefill layer: B={b} L={L} C={c} "
+            f"bf16, bias, state={st is not None} ms={ms!r} plain_ms={plain_ms!r} "
+            f"bound_ms={b_ms!r} ({by}; {n_bytes} B); bit-equal to the plain version "
+            f"(out, new state): {equal} | {card}")
+        assert equal, "causal_conv differs from its plain version"
+    return ms, plain_ms, b_ms, by
 
 
 def family_check(T, moe_lib, cfg_full, dev, card) -> None:
@@ -3254,6 +3307,7 @@ def main() -> int:
     flash_rows = time_flash(flash_lib, timer, dev, card)
     rows["flash"] = flash_rows[FLASH_TIMED[0][0]]
     rows["ssd"], err["ssd_scan"] = time_ssd(timer, dev, card)
+    rows["conv"] = time_conv(timer, dev, card)
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
 
@@ -3328,6 +3382,18 @@ def main() -> int:
         "shape": "B={} L={} H={} G={} N={} dh={} chunk={} bf16 (one layer of the "
                  "zamba2-7b-instruct.docs4k prefill); launches: a zamba2-7b "
                  "prefill's".format(*SSD_TIMED),
+    })
+    k = build.CAUSAL_CONV
+    entries.append({
+        "name": k.name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k.source}",
+        "replaces": None, "launches": families["zamba2-7b"]["conv_launches"],
+        "max_abs_err": err[k.name], "ms": rows["conv"][0], "plain_ms": rows["conv"][1],
+        "bound_ms": rows["conv"][2], "bound_by": rows["conv"][3], "library_ms": None,
+        "shape": "B={} L={} C={} bf16 with a bias and a state, u the in_proj rows' "
+                 "x | B | C columns (one layer of the zamba2-7b-instruct.docs4k "
+                 "prefill); launches: a zamba2-7b prefill's".format(
+                     CONV_TIMED[0], CONV_TIMED[1], CONV_TIMED[2] + 2 * CONV_TIMED[3]),
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

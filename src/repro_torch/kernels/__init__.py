@@ -12,6 +12,8 @@
 #                  the TNN kernels does not import the LM
 #   ssd_scan     — the SSM prefill's chunked SSD scan (csrc/ssd_scan.cu);
 #                  imported by models.ssm, not here, for the same reason
+#   causal_conv  — the SSM prefill's causal conv, bias and SiLU
+#                  (csrc/causal_conv.cu); imported by models.ssm too
 #   ops          — the public entry points: column_forward, rnl_fire,
 #                  stdp_step, train_volleys
 # ref.py holds the plain oracles; build.py compiles csrc/ with nvcc at

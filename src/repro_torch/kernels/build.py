@@ -287,5 +287,18 @@ SSD_SCAN = CudaKernel(
     headers=(),
 )
 
+# a kernel for a jnp path of the JAX package, bit-equal to its plain
+# version: its taps are explicit _rn intrinsics, and its SiLU is compiled
+# under nvcc's default flags, as PyTorch's silu is
+CAUSAL_CONV = CudaKernel(
+    name="causal_conv",
+    source="causal_conv.cu",
+    symbol="causal_conv",
+    argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P),
+    replaces="none: src/repro/models/ssm.py _causal_conv is jnp (no pallas_call)",
+    flags=(),
+    headers=(),
+)
+
 KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, FIRE_FLOAT,
-           STDP_UPDATE, FLASH_ATTENTION, SSD_SCAN)
+           STDP_UPDATE, FLASH_ATTENTION, SSD_SCAN, CAUSAL_CONV)

@@ -28,6 +28,8 @@ the card's f32 check) computes all of it in float64.  The plain scan's
 decay mask is [B, n_chunks, H, q, q]: at chunk 256 a 4032-token prompt of
 zamba2-7b-instruct at batch 8 (H 112) makes it 3.8 GB in f32; on the card
 ``ssd_chunked`` runs the scan as one kernel that keeps the mask on chip.
+The causal conv before it runs on the card as one kernel too
+(``_causal_conv``), bit-equal to its plain version.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import causal_conv as conv_lib
 from repro_torch.kernels import ssd_scan as ssd_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _acc, _dtype, _is_dtensor, dense_init, rmsnorm
@@ -64,12 +67,6 @@ def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, *, device=None) 
     return p
 
 
-def _split_proj(p: torch.Tensor, cfg: ArchConfig):
-    Di, H = cfg.d_inner, cfg.ssm_heads
-    GN = cfg.ssm_groups * cfg.ssm_state
-    return torch.split(p, [Di, Di, GN, GN, H], dim=-1)  # z, x, B, C, dt
-
-
 def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, groups: int,
                   eps: float) -> torch.Tensor:
     """Zamba2's gated RMSNorm: y * silu(z) in f32 (float64 for a float64
@@ -85,12 +82,32 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor, groups:
 def _causal_conv(u: torch.Tensor, w: torch.Tensor,
                  state: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, width CONV_K.  u: [B, L, C]; w: [K, C];
-    ``bias`` [C] added before the SiLU.
+    """Depthwise causal conv, width CONV_K, then SiLU.  u: [B, L, C] (any
+    strides: the in_proj output's x | B | C columns); w: [K, C]; ``bias``
+    [C] added before the SiLU.
 
-    With a ``state`` [B, K-1, C] (decode), prepends it; else zero-pads.
-    Returns (out [B, L, C], new_state [B, K-1, C]).
+    With a ``state`` [B, K-1, C] (a cached prefill), prepends it; else
+    zero-pads.  Returns (out [B, L, C], new_state [B, K-1, C]: the last K-1
+    rows of concat(state, u)).
+
+    CUDA tensors in bfloat16 or float32 with no gradient required run the
+    kernel ``csrc/causal_conv.cu`` (``kernels.causal_conv``, one launch,
+    bit-equal); everything else runs ``_causal_conv_plain``: CPU tensors,
+    float64, and autograd (the kernel has no backward).
     """
+    tensors = [t for t in (u, w, state, bias) if t is not None]
+    if (u.device.type == "cuda" and u.dtype in (torch.bfloat16, torch.float32)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
+        return conv_lib.causal_conv(u, w, state, bias)
+    return _causal_conv_plain(u, w, state, bias)
+
+
+def _causal_conv_plain(u: torch.Tensor, w: torch.Tensor,
+                       state: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None):
+    """``_causal_conv`` in plain PyTorch (its arguments and result): the
+    taps' products summed in f32 (float64 for a float64 model) in tap
+    order, the bias, the SiLU, the cast back."""
     Bsz, L, C = u.shape
     if state is None:
         state = u.new_zeros((Bsz, CONV_K - 1, C))
@@ -269,11 +286,10 @@ def ssm_block_apply(
     proj = h @ params["in_proj"]
     if cache is not None and L == 1:
         return _one_token(params, proj, cfg, cache)
-    z, x, Bm, Cm, dt = _split_proj(proj, cfg)
+    z, xbc, dt = torch.split(proj, [Di, Di + 2 * G * N, H], dim=-1)
 
-    conv_in = torch.cat([x, Bm, Cm], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state,
+    conv_out, new_conv = _causal_conv(xbc, params["conv_w"], conv_state,
                                       params.get("conv_b"))
     x, Bm, Cm = torch.split(conv_out, [Di, G * N, G * N], dim=-1)
     if G > 1:

@@ -1177,6 +1177,139 @@ def test_ssd_scan_refuses_bad_operands_on_the_card(cuda_device):
     torch.cuda.synchronize()
 
 
+# -------------------------------------------------------------- causal conv
+# (label, d_inner, G * N, SSD heads): the x | B | C widths of the
+# zamba2-7b-instruct.docs4k cell (C 7,424), of mamba2-370m (C 2,304) and an
+# odd smoke width (C 79: the one-element path in both dtypes)
+CONV_WIDTHS = [("docs4k", 7168, 128, 112), ("mamba2-370m", 2048, 128, 32),
+               ("odd", 61, 9, 3)]
+CONV_LENGTHS = [1, 2, 3, 5, 256, 4032]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """t's bits, as integers of its width."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _conv_case(dtype, b, L, di, gn, heads, view, dev, seed):
+    """The conv's operands: u the x | B | C columns of an in_proj output
+    (``view``) or a contiguous copy of them, w, a state and a bias."""
+    g = torch.Generator().manual_seed(seed)
+    c = di + 2 * gn
+    proj = torch.randn((b, L, di + c + heads), generator=g).to(dtype).to(dev)
+    u = proj[..., di: di + c]
+    w = (torch.randn((4, c), generator=g) * 0.5).to(dtype).to(dev)
+    st = torch.randn((b, 3, c), generator=g).to(dtype).to(dev)
+    bi = torch.randn((c,), generator=g).to(dtype).to(dev)
+    return (u if view else u.contiguous()), w, st, bi
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("view", [True, False], ids=["in_proj_view", "contiguous"])
+@pytest.mark.parametrize("width", CONV_WIDTHS, ids=lambda c: c[0])
+@pytest.mark.parametrize("L", CONV_LENGTHS)
+def test_causal_conv_kernel_is_bit_equal_to_plain(cuda_device, dtype, view, width, L):
+    """``csrc/causal_conv.cu`` against ``_causal_conv_plain`` on the card,
+    with and without a state and a bias: out and new_state bit-equal; one
+    launch a call."""
+    from repro_torch.kernels import causal_conv as conv_lib
+    from repro_torch.models import ssm
+
+    _, di, gn, heads = width
+    u, w, st, bi = _conv_case(dtype, 2, L, di, gn, heads, view, cuda_device, seed=L + di)
+    assert conv_lib.vectorized(u, w, st, bi) == (width[0] != "odd")
+    for state in (None, st):
+        for bias in (None, bi):
+            before = build.CAUSAL_CONV.launches
+            out, new = ssm._causal_conv(u, w, state, bias)
+            torch.cuda.synchronize()
+            assert build.CAUSAL_CONV.launches == before + 1
+            want_out, want_new = ssm._causal_conv_plain(u, w, state, bias)
+            assert out.dtype == new.dtype == dtype and out.is_contiguous()
+            key = (state is not None, bias is not None)
+            assert torch.equal(_bits(out), _bits(want_out)), key
+            assert torch.equal(_bits(new), _bits(want_new)), key
+
+
+def test_causal_conv_silu_is_torch_silu_on_every_finite_f32(cuda_device):
+    """The kernel's SiLU against ``torch.nn.functional.silu`` on the card,
+    bit for bit, on every finite f32 value but -0: f32 taps (0, 0, 0, 1)
+    and no bias make the conv of a row its own value (-0 becomes +0)."""
+    from repro_torch.kernels import causal_conv as conv_lib
+
+    rows, cols = 1 << 14, 1 << 14
+    w = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda_device)[:, None].expand(4, cols)
+    bad = 0
+    for lo in range(0, 1 << 32, rows * cols):
+        bits = torch.arange(lo, lo + rows * cols, dtype=torch.int64, device=cuda_device)
+        bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+        u = bits.view(torch.float32)
+        keep = torch.isfinite(u) & (bits != -(1 << 31))
+        u = torch.where(keep, u, torch.zeros((), device=cuda_device))
+        out, _ = conv_lib.causal_conv(u.view(1, rows, cols), w)
+        want = torch.nn.functional.silu(u)
+        bad += int((out.view(-1).view(torch.int32) != want.view(torch.int32))[keep].sum())
+    assert bad == 0, bad
+
+
+def test_causal_conv_runs_once_a_mamba_layer_in_the_prefill(cuda_device):
+    """The zamba2-7b-instruct smoke model on the card, in f32 and in bf16:
+    a cached prefill and a no-cache forward launch the conv once a mamba
+    layer, a
+    decode step and a forward under autograd never; the prefill's logits
+    and caches equal those of the same model with the plain conv."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import causal_conv as conv_lib
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = build.CAUSAL_CONV
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(configs.get_arch("zamba2-7b-instruct", smoke=True),
+                                  dtype=dtype)
+        cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        card = T.Transformer(T.weights(cpu, lambda t: t.detach().to(cuda_device)), cfg)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                             generator=torch.Generator().manual_seed(1)).to(cuda_device)
+        with torch.inference_mode():
+            before = k.launches
+            c_card, l_card = T.prefill(card, toks[:, :37], max_len=40)
+            assert k.launches == before + cfg.n_layers
+            real = conv_lib.causal_conv
+            conv_lib.causal_conv = lambda *a: ssm._causal_conv_plain(*a)
+            try:
+                c_plain, l_plain = T.prefill(card, toks[:, :37], max_len=40)
+            finally:
+                conv_lib.causal_conv = real
+            assert torch.equal(_bits(l_card), _bits(l_plain)), dtype
+            assert torch.equal(_bits(c_card["conv"]), _bits(c_plain["conv"])), dtype
+            before = k.launches
+            T.decode_step(card, c_card, toks[:, 37:38])
+            assert k.launches == before
+            T.forward(card, toks)
+            assert k.launches == before + cfg.n_layers
+        before = k.launches
+        T.forward(card, toks).float().sum().backward()
+        assert k.launches == before
+
+
+def test_causal_conv_refuses_bad_operands_on_the_card(cuda_device):
+    from repro_torch.kernels import causal_conv as conv_lib
+
+    u, w, st, bi = _conv_case(torch.bfloat16, 1, 8, 16, 8, 2, True, cuda_device, 0)
+    with pytest.raises(ValueError):
+        conv_lib.causal_conv(u, w.cpu(), st, bi)
+    with pytest.raises(ValueError):
+        conv_lib.causal_conv(u, w.float(), st, bi)
+    with pytest.raises(ValueError):
+        conv_lib.causal_conv(u, w[:3], st, bi)
+    conv_lib.causal_conv(u, w, st, bi)  # well formed
+    torch.cuda.synchronize()
+
+
 # ----------------------------------------------------------------- serving
 def _serving_fleet():
     """Four integer-grid designs (mus 1/1/1, no stabilizer) in two

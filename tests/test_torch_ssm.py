@@ -15,10 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import repro.configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs
+from repro_torch.kernels import build
+from repro_torch.kernels import causal_conv as conv_lib
 from repro_torch.models import ssm
 
 
@@ -53,6 +56,184 @@ def test_causal_conv_equals_jax(with_state, L):
                                    None if st is None else jnp.asarray(st))
     assert _rel_err(out.numpy(), jout) < 1e-5
     np.testing.assert_array_equal(new.numpy(), np.asarray(jnew))
+
+
+# ------------------------------------------------- the conv's kernel dispatch
+BF, F32, F64 = torch.bfloat16, torch.float32, torch.float64
+
+
+def _conv_counts():
+    k = build.CAUSAL_CONV
+    return (k.launches, k.builds, k.binds)
+
+
+def _refuse(*a, **k):
+    raise AssertionError("the kernel's wrapper was called")
+
+
+def _conv_operands(dtype, b=2, L=9, di=64, gn=16, heads=4, state=True, bias=True,
+                   device="cpu", seed=0):
+    """The conv's operands as ``ssm_block_apply`` passes them: u the x | B | C
+    columns of an in_proj output [b, L, 2 di + 2 gn + heads] (a strided
+    view), w [CONV_K, C], a state [b, CONV_K - 1, C] and a bias [C]."""
+    g = torch.Generator().manual_seed(seed)
+    c = di + 2 * gn
+    shapes = ((b, L, di + c + heads), (ssm.CONV_K, c), (b, ssm.CONV_K - 1, c), (c,))
+    if device == "cpu":
+        proj, w, st, bi = (torch.randn(s, generator=g).to(dtype) for s in shapes)
+    else:  # fake CUDA tensors (a fake CPU tensor cannot move without CUDA)
+        proj, w, st, bi = (torch.empty(s, dtype=dtype, device=device) for s in shapes)
+    u = torch.split(proj, [di, c, heads], dim=-1)[1]
+    return u, w, st if state else None, bi if bias else None
+
+
+@pytest.mark.parametrize("dtype", [F32, BF, F64], ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+def test_causal_conv_on_cpu_runs_the_plain_body(monkeypatch, dtype, state, bias):
+    """CPU tensors take ``_causal_conv_plain``, bit for bit, and touch no
+    kernel object."""
+    before = _conv_counts()
+    monkeypatch.setattr(conv_lib, "causal_conv", _refuse)
+    ops = _conv_operands(dtype, state=state, bias=bias)
+    got = ssm._causal_conv(*ops)
+    want = ssm._causal_conv_plain(*ops)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _conv_counts() == before
+
+
+# (dtype, w requires grad, grad mode, the kernel runs)
+CONV_DISPATCH = [
+    (BF, False, True, True),
+    (F32, False, True, True),
+    (F64, False, True, False),   # float64: the plain body
+    (F32, True, True, False),    # autograd: the plain body
+    (BF, True, True, False),
+    (F32, True, False, True),    # requires grad, but under no_grad
+]
+
+
+@pytest.mark.parametrize("dtype,req,grad,kernel", CONV_DISPATCH,
+                         ids=["bf16", "f32", "f64", "f32_grad", "bf16_grad", "f32_no_grad"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "state"])
+def test_causal_conv_dispatch_on_cuda_tensors(monkeypatch, dtype, req, grad, kernel, state):
+    """On (fake) CUDA tensors: bf16 and f32 without a gradient go to the
+    kernel's wrapper with ``_causal_conv``'s arguments; float64 and
+    autograd go to the plain body; neither path builds anything here."""
+    calls = []
+    monkeypatch.setattr(conv_lib, "causal_conv", lambda *a: calls.append(("kernel", a)))
+    monkeypatch.setattr(ssm, "_causal_conv_plain", lambda *a: calls.append(("plain", a)))
+    before = _conv_counts()
+    with FakeTensorMode():
+        u, w, st, bi = _conv_operands(dtype, state=state, device="cuda")
+        w.requires_grad_(req)
+        with torch.set_grad_enabled(grad):
+            ssm._causal_conv(u, w, st, bi)
+    assert [c[0] for c in calls] == ["kernel" if kernel else "plain"]
+    assert calls[0][1] == (u, w, st, bi)
+    assert _conv_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "state"])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+def test_causal_conv_plain_on_the_in_proj_view_equals_the_copy(dtype, state, bias):
+    """The plain conv reads the in_proj output's x | B | C columns in place
+    (the view ``ssm_block_apply`` now passes, in place of the concatenated
+    copy) and gives the copy's result, bit for bit."""
+    u, w, st, bi = _conv_operands(dtype, L=13, state=state, bias=bias, seed=3)
+    assert not u.is_contiguous()
+    got = ssm._causal_conv_plain(u, w, st, bi)
+    want = ssm._causal_conv_plain(u.contiguous(), w, st, bi)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "state"])
+def test_causal_conv_new_state_is_the_last_rows_of_the_concatenation(L, state):
+    """new_state is the last K-1 rows of concat(state, u): for L < K-1 it
+    mixes the state's rows (zeros without a state) and u's."""
+    u, w, st, bi = _conv_operands(BF, L=L, state=state, seed=L)
+    _, new = ssm._causal_conv(u, w, st, bi)
+    prev = st if state else torch.zeros((u.shape[0], ssm.CONV_K - 1, u.shape[2]), dtype=BF)
+    assert torch.equal(new, torch.cat([prev, u], dim=1)[:, -(ssm.CONV_K - 1):])
+
+
+def test_causal_conv_plain_is_the_tap_order_sum_in_f32():
+    """The plain conv's arithmetic, the kernel's specification: per element
+    (((0 + u[t-3] w0) + u[t-2] w1) + u[t-1] w2) + u[t] w3 in f32, + bias,
+    PyTorch's SiLU, rounded to bf16."""
+    u, w, st, bi = _conv_operands(BF, L=6, seed=9)
+    out, _ = ssm._causal_conv_plain(u, w, st, bi)
+    full = torch.cat([st, u], dim=1).float()
+    wf = w.float()
+    for t in range(u.shape[1]):
+        acc = torch.zeros(u.shape[0], u.shape[2])
+        for k in range(ssm.CONV_K):
+            acc = acc + full[:, t + k] * wf[k]
+        acc = acc + bi.float()
+        assert torch.equal(out[:, t], torch.nn.functional.silu(acc).to(BF))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["zamba2-7b-instruct", "zamba2-7b", "mamba2-370m"])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_causal_conv_takes_8_byte_accesses_at_the_port_widths(dtype, arch, smoke):
+    """The in_proj view of every SSM configuration of the port, full and
+    smoke, in bf16 and in f32, takes the kernel's 8-byte path; an odd
+    width, or a view one element off, the one-element path."""
+    cfg = configs.get_arch(arch, smoke=smoke)
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    u, w, st, bi = _conv_operands(dtype, b=2, L=3, di=di, gn=gn, heads=cfg.ssm_heads)
+    assert conv_lib.vectorized(u, w, st, bi)
+    assert conv_lib.vectorized(u, w, None, None)
+    odd, wo, so, bo = _conv_operands(dtype, b=2, L=3, di=61, gn=9, heads=3)
+    assert not conv_lib.vectorized(odd, wo, so, bo)
+    assert not conv_lib.vectorized(u[..., 1:], w[:, 1:], st[..., 1:], bi[1:])
+
+
+def test_causal_conv_wrapper_refuses_before_building():
+    """The wrapper's checks raise ValueError, before anything is built or
+    launched, for CPU tensors, mixed devices, other dtypes, wrong shapes
+    and a strided innermost dim."""
+    before = _conv_counts()
+    conv = conv_lib.causal_conv
+    u, w, st, bi = _conv_operands(F32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        conv(u, w, st, bi)
+    with FakeTensorMode():
+        u, w, st, bi = _conv_operands(BF, device="cuda")
+        c = u.shape[2]
+
+        def cuda(shape, dtype=BF, stride=None):  # (slicing a fake CUDA tensor needs CUDA)
+            if stride is None:
+                return torch.empty(shape, dtype=dtype, device="cuda")
+            return torch.empty_strided(shape, stride, dtype=dtype, device="cuda")
+
+        with pytest.raises(ValueError, match="one CUDA device"):
+            conv(u, w, st, torch.zeros((c,), dtype=BF))  # the bias on the CPU
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            conv(cuda(u.shape, F64), w.double(), st.double(), bi.double())
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            conv(u, cuda(w.shape, F32), st, bi)  # f32 taps on bf16 rows
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            conv(u, w, cuda(st.shape, F32), bi)
+        with pytest.raises(ValueError, match=r"u \[B, L >= 1, C\]"):
+            conv(cuda((9, c)), w, None, bi)
+        with pytest.raises(ValueError, match=r"u \[B, L >= 1, C\]"):
+            conv(cuda((2, 0, c)), w, st, bi)
+        with pytest.raises(ValueError, match="needs w"):
+            conv(u, cuda((3, c)), st, bi)
+        with pytest.raises(ValueError, match="needs w"):
+            conv(u, w, st, cuda((c + 1,)))
+        with pytest.raises(ValueError, match="needs w"):
+            conv(u, w, cuda((2, 4, c)), bi)
+        with pytest.raises(ValueError, match="needs w"):
+            conv(u, w, cuda((1, 3, c)), bi)
+        with pytest.raises(ValueError, match="innermost stride"):
+            conv(cuda((2, 9, c), BF, (18 * c, 2 * c, 2)), w, st, bi)
+    assert _conv_counts() == before
 
 
 @pytest.mark.parametrize("chunk", [1, 8, 29, 64])
