@@ -1891,8 +1891,11 @@ def time_flash(flash_lib, timer, dev, card) -> dict:
 
 
 # phase 17: the SSD scan at the zamba2-7b-instruct.docs4k cell's prefill
-# shape (b, L, H, G, N, dh, chunk): B 8 x 4,032, chunks of 256
+# shape (b, L, H, G, N, dh, chunk): B 8 x 4,032, chunks of 256; and at the
+# granite-4.0-h-small.rag2k cell's: B 8 x 1,920, N 128 (the (128, 64, 256)
+# tile, C read from device memory)
 SSD_TIMED = (8, 4032, 112, 2, 64, 64, 256)
+SSD_TIMED_RAG2K = (8, 1920, 128, 1, 128, 64, 256)
 
 
 def ssd_bound(b, L, H, G, N, dh, chunk, elem_bytes) -> tuple[int, int]:
@@ -1910,8 +1913,8 @@ def ssd_bound(b, L, H, G, N, dh, chunk, elem_bytes) -> tuple[int, int]:
     return n_bytes, n_ops
 
 
-def time_ssd(timer, dev, card) -> tuple:
-    """The SSD scan kernel (bf16) at ``SSD_TIMED`` through ``ssd_chunked``:
+def time_ssd(timer, dev, card, shape=SSD_TIMED, label="zamba2-7b-instruct") -> tuple:
+    """The SSD scan kernel (bf16) at ``shape`` through ``ssd_chunked``:
     held to the plain version (``repro_torch.testing.ssd``: per element
     and in the norm, bit-equality printed), then timed beside it and its
     bound.  Returns ((ms, plain ms, bound ms, what bounds it), the largest
@@ -1921,7 +1924,7 @@ def time_ssd(timer, dev, card) -> tuple:
     from repro_torch.models import ssm
     from repro_torch.testing import ssd as ssd_test
 
-    b, L, H, G, N, dh, chunk = SSD_TIMED
+    b, L, H, G, N, dh, chunk = shape
     bf = torch.bfloat16
     ops = ssd_test.ssd_inputs(b, L, H, G, N, dh, bf, dev, seed=L, initial=False)
     r = ssd_test.agreement(ssm.ssd_chunked(**ops, chunk=chunk, compute_dtype=bf), ops,
@@ -1931,7 +1934,7 @@ def time_ssd(timer, dev, card) -> tuple:
                      3, warmup=1)
     n_bytes, n_ops = ssd_bound(b, L, H, G, N, dh, chunk, 2)
     b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    log(f"[time] ssd_scan zamba2-7b-instruct prefill layer: B={b} L={L} H={H} G={G} "
+    log(f"[time] ssd_scan {label} prefill layer: B={b} L={L} H={H} G={G} "
         f"N={N} dh={dh} chunk={chunk} bf16 ms={ms!r} plain_ms={plain_ms!r} "
         f"bound_ms={b_ms!r} ({by}; {n_bytes} B, {n_ops} ops; the operations alone "
         f"{n_ops / BF16_OPS_PER_S * 1e3!r} ms at the bf16 peak); against the plain "
@@ -3307,6 +3310,7 @@ def main() -> int:
     flash_rows = time_flash(flash_lib, timer, dev, card)
     rows["flash"] = flash_rows[FLASH_TIMED[0][0]]
     rows["ssd"], err["ssd_scan"] = time_ssd(timer, dev, card)
+    time_ssd(timer, dev, card, SSD_TIMED_RAG2K, "granite-4.0-h-small")
     rows["conv"] = time_conv(timer, dev, card)
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")

@@ -4,7 +4,8 @@
 Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced CPU-testable config), as in the JAX package, for
 all ten of its ids (``ARCH_IDS``).  ``PORT_ONLY`` holds the ids the
-JAX package has no twin of (``zamba2-7b-instruct``, Zamba2 as published);
+JAX package has no twin of (``zamba2-7b-instruct``, Zamba2 as published;
+``granite-4.0-h-small``, Granite 4.0-H as published);
 ``get_arch`` resolves both, and the tests that walk ``ARCH_IDS`` against
 the JAX registry never meet them.  ``SHAPES`` is the dry run's table of input shapes
 and ``input_specs`` builds the ``meta`` stand-ins each (arch x shape)
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs import (
     deepseek_coder_33b,
     granite_3_8b,
+    granite_4_0_h_small,
     kimi_k2_1t_a32b,
     mamba2_370m,
     olmoe_1b_7b,
@@ -47,7 +49,7 @@ _MODULES = (
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)
-PORT_ONLY = {m.ARCH_ID: m for m in (zamba2_7b_instruct,)}
+PORT_ONLY = {m.ARCH_ID: m for m in (zamba2_7b_instruct, granite_4_0_h_small)}
 
 
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:

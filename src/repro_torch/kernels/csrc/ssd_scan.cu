@@ -61,7 +61,11 @@
 //    B^T (ldmatrix.trans) against the weighted input, which each lane
 //    forms and splits in registers from x, dt and the decay.
 // The bf16 kernel takes 179 KB of shared memory at chunk 256 (one block
-// an SM) and 103 KB at chunk 128 (two).  Later work: the next chunk's
+// an SM) and 103 KB at chunk 128 (two).  Where that plan passes the 227 KB
+// a block may have (N 128 at chunk 256: 266 KB), C stays out of shared
+// memory: each warp reads its row tile's C fragments from device memory
+// straight into registers (they are read nowhere else), and the tile
+// takes 198 KB; the arithmetic is the same.  Later work: the next chunk's
 // loads and cumulative sum overlapped with this chunk's products.
 //
 // It allocates nothing and launches on the caller's stream.
@@ -74,6 +78,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+// the shared memory a block may opt in to on sm_90 (227 KB)
+constexpr size_t kMaxSmem = 232448;
 
 // One launch's operands.  Strides are in elements; x, B and C have unit
 // innermost strides.
@@ -212,15 +218,23 @@ struct Shape {
   static constexpr int NP = N < 16 ? 16 : N;  // N zero-padded to the mma depth
   static constexpr int LN = NP + 8;  // row stride (elements) of B and C
   static constexpr int LD = DH + 8;  // of x, bf16(x dt) and the state planes
+  // C in shared memory where the whole plan fits (else its fragments are
+  // read from device memory): B, C, bf16(x dt), x, the 3 state planes and
+  // 4 x [Q] f32
+  static constexpr size_t kRest = size_t(Q) * LN * 2 + size_t(2) * Q * LD * 2 +
+                                  size_t(3) * NP * LD * 2 + size_t(4) * Q * 4;
+  static constexpr bool kCShared = kRest + size_t(Q) * LN * 2 <= kMaxSmem;
   static constexpr size_t kB = 0;
   static constexpr size_t kC = kB + size_t(Q) * LN * 2;
-  static constexpr size_t kX = kC + size_t(Q) * LN * 2;   // bf16(x dt)
+  static constexpr size_t kX = kC + (kCShared ? size_t(Q) * LN * 2 : 0);  // bf16(x dt)
   static constexpr size_t kXr = kX + size_t(Q) * LD * 2;  // x as read
   static constexpr size_t kS = kXr + size_t(Q) * LD * 2;  // 3 planes [NP][LD]
   static constexpr size_t kF = kS + size_t(3) * NP * LD * 2;  // 4 x [Q] f32
   static constexpr size_t kSmem = kF + size_t(4) * Q * 4;
   static_assert(N % 8 == 0 && DH % 16 == 0 && Q % 16 == 0, "tile shapes");
   static_assert(DH / 8 <= kWarps, "one column tile of the state a warp");
+  static_assert(kCShared || N % 16 == 0, "C from device memory: no padded columns");
+  static_assert(kSmem <= kMaxSmem, "the plan passes the shared memory of a block");
 };
 
 template <int N, int DH, int Q>
@@ -228,6 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_kernel(const Args a) {
   using S = Shape<N, DH, Q>;
   constexpr int NP = S::NP, LN = S::LN, LD = S::LD;
   constexpr int XV = DH / 8, NV = N / 8;  // 16-byte vectors a row
+  constexpr int CV = S::kCShared ? NV : 0;  // of C brought to shared memory
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem + S::kB);
   __nv_bfloat16* cs_ = reinterpret_cast<__nv_bfloat16*>(smem + S::kC);
@@ -259,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_kernel(const Args a) {
     for (int e = tid; e < Q * (NP - N); e += kThreads) {
       const int r = e / (NP - N), k = N + e % (NP - N);
       bs[r * LN + k] = __float2bfloat16_rn(0.f);
-      cs_[r * LN + k] = __float2bfloat16_rn(0.f);
+      if (S::kCShared) cs_[r * LN + k] = __float2bfloat16_rn(0.f);
     }
 
   // the carried state: warp w holds rows n of columns 8w..8w+7 (the
@@ -298,8 +313,8 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_kernel(const Args a) {
     const int p0 = c * a.q;
     const int nv = min(a.q, a.len - p0);  // rows of this chunk
     __syncthreads();  // the previous chunk is done with the tiles
-    for (int e = tid; e < Q * (XV + 2 * NV); e += kThreads) {
-      const int r = e / (XV + 2 * NV), k = e % (XV + 2 * NV);
+    for (int e = tid; e < Q * (XV + NV + CV); e += kThreads) {
+      const int r = e / (XV + NV + CV), k = e % (XV + NV + CV);
       __nv_bfloat16* dst;
       const __nv_bfloat16* src;
       if (k < XV) {
@@ -351,9 +366,25 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_kernel(const Args a) {
       if (rt >= NT || rt * 16 >= nv) continue;
       const int i0 = rt * 16, ia = i0 + gid, ib = ia + 8;
       uint32_t cf[NP / 16][4];
-      #pragma unroll
-      for (int kk = 0; kk < NP / 16; ++kk)
-        ldsm_x4(cf[kk], cs_ + (i0 + (lane & 15)) * LN + kk * 16 + (lane >> 4) * 8);
+      if (S::kCShared) {
+        #pragma unroll
+        for (int kk = 0; kk < NP / 16; ++kk)
+          ldsm_x4(cf[kk], cs_ + (i0 + (lane & 15)) * LN + kk * 16 + (lane >> 4) * 8);
+      } else {
+        // the A fragments of rows ia and ib (zeros past the chunk), as
+        // ldmatrix would give them: columns 2 tig and 8 + 2 tig of each
+        // 16-column step
+        const __nv_bfloat16* ca = cg + (p0 + ia) * a.scl + 2 * tig;
+        const __nv_bfloat16* cb = cg + (p0 + ib) * a.scl + 2 * tig;
+        const bool va = ia < nv, vb = ib < nv;
+        #pragma unroll
+        for (int kk = 0; kk < NP / 16; ++kk) {
+          cf[kk][0] = va ? __ldg(reinterpret_cast<const unsigned*>(ca + kk * 16)) : 0u;
+          cf[kk][1] = vb ? __ldg(reinterpret_cast<const unsigned*>(cb + kk * 16)) : 0u;
+          cf[kk][2] = va ? __ldg(reinterpret_cast<const unsigned*>(ca + kk * 16 + 8)) : 0u;
+          cf[kk][3] = vb ? __ldg(reinterpret_cast<const unsigned*>(cb + kk * 16 + 8)) : 0u;
+        }
+      }
 
       // y_inter = (C . S_prev) exp(cs_i), over the three planes of S_prev
       float yi[DH / 8][4] = {};
@@ -592,8 +623,14 @@ int launch(int dtype, const Args& a, int batch, cudaStream_t stream) {
     kernel = tc::ssd_kernel<N, DH, Q>;
     smem = tc::Shape<N, DH, Q>::kSmem;
   } else if (dtype == 0) {
-    kernel = simt::ssd_kernel<N, DH, Q>;
-    smem = simt::Shape<N, DH, Q>::kSmem;
+    // the f32 plan keeps C, B, x and the state in f32: no instantiation
+    // where that passes a block's shared memory (N 128 at chunk 256)
+    if constexpr (simt::Shape<N, DH, Q>::kSmem <= kMaxSmem) {
+      kernel = simt::ssd_kernel<N, DH, Q>;
+      smem = simt::Shape<N, DH, Q>::kSmem;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -609,7 +646,8 @@ int launch(int dtype, const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B and C).  (n_state, head_dim,
-// chunk_tile) one of the instantiations below (kernels/ssd_scan.py SHAPES),
+// chunk_tile) one of the instantiations below (kernels/ssd_scan.py SHAPES;
+// (128, 64, 256) in bfloat16 only, BF16_ONLY there),
 // 1 <= chunk <= chunk_tile; heads a multiple of groups; len >= 1, batch >=
 // 1.  x, B and C rows 16-byte aligned; s0 null or [batch, heads, n_state,
 // head_dim] contiguous; y [batch, len, heads, head_dim] and s_out
@@ -633,6 +671,7 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* a,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = n_state, d = head_dim, q = chunk_tile;
   if (n == 64 && d == 64 && q == 256) return launch<64, 64, 256>(dtype, args, batch, st);
+  if (n == 128 && d == 64 && q == 256) return launch<128, 64, 256>(dtype, args, batch, st);
   if (n == 64 && d == 64 && q == 128) return launch<64, 64, 128>(dtype, args, batch, st);
   if (n == 128 && d == 64 && q == 128) return launch<128, 64, 128>(dtype, args, batch, st);
   if (n == 16 && d == 16 && q == 16) return launch<16, 16, 16>(dtype, args, batch, st);

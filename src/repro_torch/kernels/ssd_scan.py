@@ -13,7 +13,9 @@ says how).  x, B and C are read where they lie (the conv output's split
 views), through their strides.
 
 The kernel is instantiated for the (state dim N, head dim, chunk tile)
-triples of the port's SSM configurations, ``SHAPES``; a chunk shorter
+triples of the port's SSM configurations, ``SHAPES`` (those of
+``BF16_ONLY`` in bfloat16 alone: the f32 kernel's plan does not fit a
+block's shared memory there); a chunk shorter
 than its tile (a cached prefill of a prompt shorter than ``ssm_chunk``
 runs one chunk of the prompt's length) runs in the smallest tile that
 holds it, its rows past the chunk zero, as the plain version's pad is.
@@ -28,9 +30,15 @@ import torch
 
 from repro_torch.kernels import build
 
-# (N, head dim, chunk tile): zamba2-7b-instruct (G 2), zamba2-7b and
-# mamba2-370m (G 1), and the smoke configs (the instruct smoke's N 8, G 2)
-SHAPES = ((64, 64, 256), (64, 64, 128), (128, 64, 128), (16, 16, 16), (8, 16, 16))
+# (N, head dim, chunk tile): zamba2-7b-instruct (G 2), granite-4.0-h-small
+# (G 1), zamba2-7b and mamba2-370m (G 1), and the smoke configs (the
+# instruct smoke's N 8, G 2)
+SHAPES = ((64, 64, 256), (128, 64, 256), (64, 64, 128), (128, 64, 128), (16, 16, 16),
+          (8, 16, 16))
+# tiles with no float32 instantiation: the f32 plan (B, C, x and the state
+# in f32) takes 365 KB of shared memory at (128, 64, 256), past the 227 KB
+# a block may have
+BF16_ONLY = ((128, 64, 256),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,6 +111,9 @@ def ssd_scan(
             f"B {tuple(Bm.shape)}, C {tuple(Cm.shape)}, state "
             f"{None if initial_state is None else tuple(initial_state.shape)}")
     tile = chunk_tile(N, dh, int(chunk))
+    if x.dtype == torch.float32 and (N, dh, tile) in BF16_ONLY:
+        raise ValueError(f"ssd_scan: no float32 instantiation for N {N}, head dim {dh}, "
+                         f"chunk tile {tile} (bfloat16 only: {BF16_ONLY})")
     if any(t.stride(-1) != 1 for t in (x, Bm, Cm)) or A.stride(0) != 1:
         raise ValueError("ssd_scan needs x, B and C with innermost stride 1 and A "
                          "contiguous")

@@ -13,20 +13,24 @@ and so are the prompts unless the caller passes its own (``serve(...,
 prompts=, model=)``: a benchmark's token ids and loaded weights); the audio
 family's frame embeddings are zeros in the model's dtype, as in the JAX
 package.  On the card every attention of a prefill (and whisper's
-cross-attention of each decode step, and the published Zamba2's decode
-attention over its cache) runs the flash kernel; each decode step is one
-token per request.  The published Zamba2's decode step (``T.decode_step``
-at a device position) runs on the card as one CUDA graph
-(``models/zamba2.py``'s ``DecodeGraph``) over a cache the model keeps with
-it, captured at the first batch of a shape and replaced by a batch of
-another (span ``lm.decode_graph``: the capture, or the next batch's reset
-of the cache; timed in neither phase).
+cross-attention of each decode step, and the published models' decode
+attention over their caches) runs the flash kernel; each decode step is
+one token per request.  The published models' decode step
+(``T.decode_step`` at a device position; Zamba2 and Granite 4.0-H,
+``T.published``) runs on the card as one CUDA graph (``models/zamba2.py``'s
+``DecodeGraph``) over a cache the model keeps with it, captured at the
+first batch of a shape and replaced by a batch of another (span
+``lm.decode_graph``: the capture, or the next batch's reset of the cache;
+timed in neither phase).
 
 Traced (``repro_torch.obs`` on): spans ``lm.prefill`` (batch, prompt
 length; it ends at the first token's copy to the host) and
 ``lm.decode_step`` (step; it ends at the step's token copy), counters
 ``lm.tokens_prefilled`` and ``lm.tokens_decoded``.  Under the decode graph
-the spans inside a step (``lm.shared_block``) are not recorded.
+the spans inside a step (``lm.shared_block``, ``lm.moe``) are not
+recorded; a model whose module has ``observe_decode`` (Granite 4.0-H's
+MoE counters) reads what the step left in its cache after the step's
+token copy.
 """
 from __future__ import annotations
 
@@ -43,7 +47,6 @@ from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.core.backend import default_device
 from repro_torch.models import transformer as T
-from repro_torch.models import zamba2 as zamba2_lib
 from repro_torch.models.config import ArchConfig
 
 
@@ -65,6 +68,11 @@ class ServeResult:
     # those rows of every tensor of the cache after the last step (each
     # cache tensor holds the batch on its axis 1), in ``keep``'s order
     kept_cache: Optional[dict] = None
+    # what the model tapped of those rows, by name, each [len(keep),
+    # layers, ...] (Granite 4.0-H: 'moe', each MoE block's output on the
+    # prompt [len(keep), L, S, D], and 'moe_decode', at each decode step
+    # [len(keep), L, tokens - 1, D]); None where nothing was
+    kept_taps: Optional[dict] = None
 
     @property
     def decode_s_per_token(self) -> float:
@@ -90,7 +98,9 @@ def serve(
     from ``seed``; ``model`` defaults to random weights from ``seed`` on
     ``device``; the audio family's ``frames`` [batch, enc_seq, d_model]
     default to zeros.  ``keep``: rows whose every decode step's logits and
-    final cache are kept (``step_logits``, ``kept_cache``)."""
+    final cache are kept (``step_logits``, ``kept_cache``), and what the
+    model taps of them in the prefill and the decode steps
+    (``kept_taps``)."""
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
@@ -107,19 +117,29 @@ def serve(
         kept = []
         max_len = prompt_len + tokens + 1
         cache = graph = None
-        if cfg.family == "zamba2" and dev.type == "cuda":
-            # the published Zamba2's decode step runs as one CUDA graph over
-            # the cache the model keeps with it (captured at the first batch
-            # of this shape)
+        lib = T.published(cfg)
+        observe = getattr(lib, "observe_decode", None)
+        step_taps = getattr(lib, "decode_taps", None) if rows is not None else None
+        if lib is not None and dev.type == "cuda":
+            # a published model's decode step runs as one CUDA graph over the
+            # cache the model keeps with it (captured at the first batch of
+            # this shape)
             with obs.span("lm.decode_graph"):
-                graph = zamba2_lib.decode_graph(model, batch, max_len)
+                graph = lib.decode_graph(model, batch, max_len)
                 cache = graph.cache
+        taps = {}
+        if rows is not None:
+            model.__dict__["_taps"] = (rows, taps)
         t0 = time.perf_counter()
-        with obs.span("lm.prefill", (batch, prompt_len) if obs.ON else ()):
-            cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames,
-                                      cache=cache)
-            tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
-            out = [tok.cpu().numpy()]
+        try:
+            with obs.span("lm.prefill", (batch, prompt_len) if obs.ON else ()):
+                cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames,
+                                          cache=cache)
+                tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
+                out = [tok.cpu().numpy()]
+        finally:
+            model.__dict__.pop("_taps", None)
+        prefill_taps = set(taps)
         obs.count("lm.tokens_prefilled", batch * prompt_len)
         t_prefill = time.perf_counter() - t0
         prefill_logits = logits
@@ -133,14 +153,24 @@ def serve(
                 tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
                 if rows is not None:
                     kept.append(logits[rows, -1])
+                if step_taps is not None:
+                    for k, t in step_taps(cache).items():
+                        taps.setdefault(k, []).append(t.index_select(1, rows))
                 out.append(tok.cpu().numpy())
+                if observe is not None and obs.ON:
+                    observe(model, cache)
             obs.count("lm.tokens_decoded", batch)
         t_decode = time.perf_counter() - t0
         kept_cache = None if rows is None else {
             k: v.index_select(1, rows) for k, v in cache.items() if torch.is_tensor(v)}
     step_logits = torch.stack(kept, dim=1) if kept else None
+    # [len(keep), layers, ...]: the prefill's taps [layers][len(keep), ...];
+    # the decode steps' [steps][layers, len(keep), ...], each row's steps
+    # in order ([len(keep), layers, steps, ...])
+    kept_taps = {k: torch.stack(v, dim=1) if k in prefill_taps else
+                 torch.stack(v, dim=2).transpose(0, 1) for k, v in taps.items()} or None
     return ServeResult(cfg, str(dev), t_prefill, t_decode, np.concatenate(out, axis=1),
-                       prefill_logits, logits, step_logits, kept_cache)
+                       prefill_logits, logits, step_logits, kept_cache, kept_taps)
 
 
 def main(argv=None) -> int:

@@ -17,7 +17,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'audio' | 'vlm' | 'zamba2'
+    family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'audio' | 'vlm' | 'zamba2' | 'granite4h'
     n_layers: int
     d_model: int
     n_heads: int
@@ -83,6 +83,7 @@ class ArchConfig:
     ssm_norm = "rmsnorm"
     norm_eps = 1e-6  # the final norm's
     tie_embeddings = False
+    logits_scaling = 1.0  # the logits divided by it (Granite 4.0-H: 16)
 
     def __post_init__(self):
         if self.d_head is None and self.n_heads:
@@ -223,3 +224,76 @@ class Zamba2Config(ArchConfig):
 
     def active_param_count(self) -> int:
         return self.param_count()
+
+
+@dataclasses.dataclass(frozen=True)
+class GraniteMoeHybridConfig(ArchConfig):
+    """Granite 4.0-H as published (``transformers``'
+    ``GraniteMoeHybridForCausalLM``, model type ``granitemoehybrid``).
+
+    ``n_layers`` decoder layers, each a mixer then a feed-forward block:
+    the mixer is a Mamba2 layer (``ssm_heads`` heads of ``ssm_head_dim``,
+    state ``ssm_state``, ``ssm_groups`` groups, a conv with bias, chunk
+    ``ssm_chunk``, softplus(dt) not clamped, the gated RMSNorm over
+    d_inner / ``ssm_groups`` in f32) or, at ``attn_layer_ids``, GQA
+    attention (``n_heads`` query and ``n_kv_heads`` KV heads of
+    ``d_head``, no position embedding, scores scaled by
+    ``attention_multiplier``); the feed-forward block is a dropless MoE of
+    ``n_experts`` SwiGLU experts of width ``d_ff``, top ``top_k`` with a
+    softmax over the top-k logits, plus a shared SwiGLU expert of width
+    ``shared_d_ff``.  Each branch is added to the residual times
+    ``residual_multiplier``; the embeddings are scaled by
+    ``embedding_multiplier`` and the logits divided by ``logits_scaling``
+    (muP).  Embeddings tied.  The family is 'granite4h': the model code
+    dispatches on it (``models/granite4h.py``).
+    """
+    attn_layer_ids: tuple = ()
+    shared_d_ff: int = 1536
+    embedding_multiplier: float = 12.0
+    residual_multiplier: float = 0.22
+    attention_multiplier: float = 1.0 / 128
+    logits_scaling: float = 16.0
+    conv_bias: bool = True
+    norm_eps: float = 1e-5
+    max_position: int = 131072
+    tie_embeddings: bool = True
+    ssm_norm: str = "grouped"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "granite4h":
+            raise ValueError(f"a GraniteMoeHybridConfig is of family 'granite4h', not "
+                             f"{self.family!r}")
+
+    @property
+    def n_attn(self) -> int:
+        return len(self.attn_layer_ids)
+
+    @property
+    def n_mamba(self) -> int:
+        return self.n_layers - self.n_attn
+
+    def _expert_params(self) -> int:
+        """One routed expert: gate and up [2 d_ff, D], down [D, d_ff]."""
+        return 3 * self.d_model * self.d_ff
+
+    def param_count(self) -> int:
+        """Parameters as published: the tied embedding, every layer's two
+        norms, router, experts and shared expert, the mamba and attention
+        mixers, the final norm."""
+        D, Di, G, N = self.d_model, self.d_inner, self.ssm_groups, self.ssm_state
+        H, E = self.ssm_heads, self.n_experts
+        conv = Di + 2 * G * N
+        mamba = (D * (Di + conv + H) + conv * (4 + int(self.conv_bias)) + 3 * H + Di
+                 + Di * D)
+        hq, hkv = self.n_heads * self.d_head, self.n_kv_heads * self.d_head
+        attn = D * hq + 2 * D * hkv + hq * D
+        ffn = 2 * D + D * E + E * self._expert_params() + 3 * D * self.shared_d_ff
+        return (self.vocab_size * D + self.n_layers * ffn + self.n_mamba * mamba
+                + self.n_attn * attn + D)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: every expert but its ``top_k`` of
+        ``n_experts`` left out, the shared expert and the router kept."""
+        idle = self.n_layers * (self.n_experts - self.top_k) * self._expert_params()
+        return self.param_count() - idle

@@ -380,6 +380,31 @@ def _attend(q, k, v, causal: bool, cfg: ArchConfig,
     return flash_lib.flash_attention(q, k, v, causal, **kw)
 
 
+def cached_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,
+                  scale: float, kv: Optional[dict]) -> torch.Tensor:
+    """A step's attention, q [B, S, Hq, d] over its k, v [B, S, Hkv, d],
+    through a KV cache ``kv`` ({'k', 'v'} [B, max_len, Hkv, d]) where one
+    is given: a prefill ('len' 0) writes rows 0..S-1 and attends causally
+    over the prompt; a decode step (kv 'pos' int64 [1] and 'kv_len' int32
+    [1] on the device, S == 1) writes row 'pos' and attends the cache's
+    first 'kv_len' rows, which the flash kernel reads itself (plain
+    attention on CPU tensors).  Without a cache, causal attention over the
+    step.  The published models' attention (Zamba2's shared blocks,
+    Granite 4.0-H's attention layers)."""
+    if kv is not None and "pos" in kv:
+        kv["k"].index_copy_(1, kv["pos"], k)
+        kv["v"].index_copy_(1, kv["pos"], v)
+        return _attend(q, kv["k"], kv["v"], False, cfg, scale=scale, kv_len=kv["kv_len"])
+    if kv is not None:
+        if kv["len"]:
+            raise ValueError("a prefill fills an empty cache; a decode step "
+                             "gives its position")
+        S = q.shape[1]
+        kv["k"][:, :S] = k
+        kv["v"][:, :S] = v
+    return _attend(q, k, v, True, cfg, scale=scale)
+
+
 def _attend_local(q, k, v, causal: bool, cfg: ArchConfig):
     """``_attend`` on DTensors: each device attends its own batch rows and
     heads (a ``local_map`` in q's layout, k and v brought to it), since

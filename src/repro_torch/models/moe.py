@@ -4,7 +4,8 @@ Port of the JAX package's ``models/moe.py``:
 
 * ``moe_reference`` — every expert for every token (O(E) operations; tests
   and tiny smokes only), exact dropless semantics.
-* ``moe_apply`` — the production path: route (top-k of the router's
+* ``moe_apply`` — the capacity path of the JAX package's ids (olmoe-1b-7b,
+  kimi-k2 and their smokes, family 'moe'): route (top-k of the router's
   logits, softmax after top-k), then ``moe_local_shard`` with
   ``_local_shard_gathered`` (per-expert capacity slots, batched
   [E_loc, cap_e, D] products; the default) or ``_local_shard_ragged``
@@ -19,25 +20,38 @@ Port of the JAX package's ``models/moe.py``:
   others' assignments masked to an overflow id) and the shares are
   summed over ``model`` (a ``Partial`` output made ``Replicate``: an
   all-reduce, JAX's ``psum``).
+* ``moe_dropless`` — the dropless path of the published Granite 4.0-H
+  (``granite-4.0-h-small``, family 'granite4h'; ``models/granite4h.py``),
+  as ``GraniteMoeHybridMoE`` computes it: every assignment computed.  Its
+  experts keep the published layout (``w_in`` [E, 2 F, D], gate rows
+  first, and ``w_out`` [E, D, F]).  Each expert gets as many slots as its
+  largest load needs and the SwiGLU runs batched over the experts,
+  [E, cap, D]: a prefill reads the largest load on the host (one wait a
+  block, no loop over the experts); a decode step (``static=True``: every
+  shape fixed, so a CUDA graph captures it) takes cap T, which no expert
+  can overflow (a token picks an expert once), and reads every expert's
+  weights.
 
-Assignments beyond an expert's capacity ``cap_e = max(1, round(T k / E
-cf))`` are dropped (Switch/GShard-style), in the JAX package's order: the
-position of an assignment in its expert counts the flat (token, slot)
-order.  The gathered path has no shape that depends on the data (a
-scatter-add counts the experts, the overflow slot takes the dropped
-assignments), so it also runs on fake tensors (the dry run).
+The capacity path drops the assignments beyond an expert's capacity
+``cap_e = max(1, round(T k / E cf))`` (Switch/GShard-style), in the JAX
+package's order: the position of an assignment in its expert counts the
+flat (token, slot) order.  The gathered path has no shape that depends on
+the data (a scatter-add counts the experts, the overflow slot takes the
+dropped assignments), so it also runs on fake tensors (the dry run).  No
+published MoE drops: the dropless path keeps every assignment.
 
 Where JAX relies on its own ordering the port makes it explicit: top-k is
 the first k of a stable descending sort (JAX's top-k puts the lower index
 first on equal values), the ragged sort is stable (JAX's argsort is), and
 capacities use Python's ``round``.  The combine does not scatter-
 add (whose order on the card follows atomics): each token gathers its k
-slot outputs and sums them in slot order, so a decode step gives the same
-bits from run to run.
+slot outputs and sums them in slot order, so a step gives the same bits
+from run to run, on both paths.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -70,18 +84,25 @@ def _experts(generator, shape, dtype, device) -> torch.Tensor:
     return out
 
 
+def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Softmax-after-topk routing of x [T, D] by ``router`` [D, E]: (probs
+    [T, k], ids [T, k] int64, logits [T, E]), the logits and probs in f32
+    (float64 for a float64 model).  On equal logits the lower expert id
+    comes first, as in JAX's top-k."""
+    ct = _acc(router.dtype)
+    logits = x.to(ct) @ router.to(ct)  # [T, E]
+    vals, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[:, :top_k], dim=-1), order[:, :top_k], logits
+
+
 def router_topk(x: torch.Tensor, router: torch.Tensor, top_k: int):
     """Softmax-after-topk routing (Mixtral/OLMoE convention).
 
     x: [T, D] -> (probs [T, k], ids [T, k] int64, aux_loss scalar), probs
-    and aux in f32 (float64 for a float64 model).  On equal logits the
-    lower expert id comes first, as in JAX's top-k.
+    and aux in f32 (float64 for a float64 model), as ``route``.
     """
     ct = _acc(router.dtype)
-    logits = x.to(ct) @ router.to(ct)  # [T, E]
-    vals, order = torch.sort(logits, dim=-1, descending=True, stable=True)
-    vals, ids = vals[:, :top_k], order[:, :top_k]
-    probs = torch.softmax(vals, dim=-1)
+    probs, ids, logits = route(x, router, top_k)
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     E = router.shape[1]
     me = torch.softmax(logits, dim=-1).mean(dim=0)
@@ -255,6 +276,64 @@ def _expert_parallel(xt, params, cfg, mesh, model_axis):
         device_mesh=mesh, redistribute_inputs=True,
     )(xt, params["router"], params["w_gate"], params["w_up"], params["w_down"])
     return y.redistribute(mesh, tok)  # the sum over model: an all-reduce
+
+
+def expert_loads(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Assignments each expert takes, [E] int64 on ids' device (a
+    scatter-add: no host read, no data-dependent shape)."""
+    flat = ids.reshape(-1)
+    loads = torch.zeros(n_experts, dtype=flat.dtype, device=flat.device)
+    return loads.scatter_add_(0, flat, torch.ones_like(flat))
+
+
+def experts_in_slots(x: torch.Tensor, params: dict, probs: torch.Tensor, ids: torch.Tensor,
+                     cap: int) -> torch.Tensor:
+    """The SwiGLU experts (the published layout) over x [T, D] for the
+    routing (probs, ids) [T, k]: each expert gets ``cap`` slots, filled in
+    flat (token, slot) order, and the two products run batched over the
+    experts, [E, cap, D] (unused slots are zero rows); each output times
+    its gate in x's dtype, a token's k summed in slot order.  An
+    assignment past its expert's ``cap`` gives nothing."""
+    T, D = x.shape
+    E, k = params["w_in"].shape[0], ids.shape[1]
+    flat = ids.reshape(-1)
+    kept, pie = capacity_keep(flat, E, cap)
+    n = E * cap
+    dest = torch.where(kept, flat * cap + pie, n)  # one spare slot takes the rest
+    slot_tok = torch.zeros(n + 1, dtype=torch.long, device=x.device)
+    slot_used = torch.zeros(n + 1, dtype=x.dtype, device=x.device)
+    slot_tok[dest] = torch.arange(T * k, device=x.device) // k
+    slot_used.index_fill_(0, dest, 1)  # a scalar fill: nothing copied from the host
+    x_e = x[slot_tok[:n]].mul_(slot_used[:n, None]).reshape(E, cap, D)
+    gate, up = torch.bmm(x_e, params["w_in"].transpose(1, 2)).chunk(2, dim=-1)
+    del x_e
+    y_e = torch.bmm(_silu_glu(gate, up), params["w_out"].transpose(1, 2)).reshape(n, D)
+    del gate, up
+    gates = (probs.reshape(-1) * kept).to(x.dtype)  # 0 where dropped
+    y_slots = y_e[dest.clamp(max=n - 1)].mul_(gates[:, None])
+    del y_e
+    return y_slots.reshape(T, k, D).sum(dim=1)
+
+
+def moe_dropless(x: torch.Tensor, params: dict, top_k: int,
+                 static: bool = False) -> tuple[torch.Tensor, torch.Tensor, Optional[list]]:
+    """The dropless MoE over x [T, D] with ``params`` {'router' [D, E],
+    'w_in' [E, 2 F, D], 'w_out' [E, D, F]}: (y [T, D] in x's dtype, the
+    routed ids [T, k], the experts' loads as a host list or None).
+
+    Routing is ``route``'s (top k of the f32 logits, a softmax over the k);
+    the gates are cast to x's dtype and multiply each expert's output, as
+    ``GraniteMoeHybridTopKGating`` does (``experts_in_slots``).  ``static``
+    False gives each expert as many slots as the largest load, read on the
+    host (a prefill: one wait, no loop over the experts); ``static`` True
+    gives it T, which no expert overflows since a token picks an expert
+    once, so every shape is fixed (a decode step that a CUDA graph
+    captures; loads None)."""
+    E = params["w_in"].shape[0]
+    probs, ids, _ = route(x, params["router"], top_k)
+    loads = None if static else expert_loads(ids, E).tolist()
+    cap = x.shape[0] if static else max(loads)
+    return experts_in_slots(x, params, probs, ids, cap), ids, loads
 
 
 def moe_reference(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:

@@ -6,9 +6,12 @@ Port of the JAX package's ``models/transformer.py``:
   ssm         : a stack of mamba2 blocks (``models/ssm.py``), no attention
   hybrid      : mamba2 backbone + ONE shared attention block applied every
                 ``attn_every`` layers with per-application LoRA on W_q
-                (zamba2, the JAX package's simplified variant); Zamba2 as
-                published (``Zamba2Config``, zamba2-7b-instruct) runs the
-                layer loop of ``models/zamba2.py``
+                (zamba2, the JAX package's simplified variant)
+  published   : Zamba2 as published (``Zamba2Config``, zamba2-7b-instruct)
+                and Granite 4.0-H as published (``GraniteMoeHybridConfig``,
+                granite-4.0-h-small) run the layer loops, caches and
+                loaders of ``models/zamba2.py`` and ``models/granite4h.py``
+                (``published(cfg)``, the one place that dispatches to them)
   audio       : whisper-style encoder-decoder over frame embeddings (the
                 conv frontend is a stub: callers pass the frames)
 
@@ -45,6 +48,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.models import granite4h as granite4h_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -55,6 +59,17 @@ from repro_torch.models.config import ArchConfig
 _F32_LEAVES = frozenset({"router", "A_log", "D_skip", "dt_bias"})
 # trees whose leaves carry the layer on their leading axis
 _STACKED = ("blocks", "enc_blocks", "cross_blocks")
+# the families laid out as a published checkpoint, by their model module
+_PUBLISHED = {"zamba2": zamba2_lib, "granite4h": granite4h_lib}
+
+
+def published(cfg: ArchConfig):
+    """The model module of a family laid out as a published checkpoint
+    (``models/zamba2.py``, ``models/granite4h.py``), or None.  Each has
+    ``init_weights``, ``weights_from_hf``, ``layers``, ``init_cache``,
+    ``decode_static`` and ``decode_graph``: the one place the model code
+    dispatches to them."""
+    return _PUBLISHED.get(cfg.family)
 
 
 class Block(nn.Module):
@@ -101,7 +116,7 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(b, cfg) for b in weights["blocks"])
         self.shared_attn = (Block(weights["shared_attn"], cfg)
                             if cfg.family == "hybrid" else None)
-        if cfg.family == "zamba2":
+        if "shared_blocks" in weights:  # the published Zamba2's
             self.shared_blocks = nn.ModuleList(Block(b, cfg) for b in weights["shared_blocks"])
             self.apps = nn.ModuleList(L._Weights(a) for a in weights["apps"])
         if cfg.family == "audio":
@@ -168,10 +183,11 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     live on that device), in the JAX package's distributions: embedding
     N(0, 0.02), projections N(0, 1/fan_in) (experts N(0, 1/E), as its
     ``dense_init`` reads the leading axis), norms 1, SSM gains as
-    initialised there.  The published Zamba2 takes
-    ``zamba2.init_weights``."""
-    if cfg.family == "zamba2":
-        return Transformer(zamba2_lib.init_weights(generator, cfg, device), cfg)
+    initialised there.  A published layout takes its module's
+    ``init_weights``."""
+    lib = published(cfg)
+    if lib is not None:
+        return Transformer(lib.init_weights(generator, cfg, device), cfg)
     dt = L._dtype(cfg)
     V, D = cfg.vocab_padded, cfg.d_model
     weights = {
@@ -233,13 +249,16 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device) -> Transformer:
     return Transformer(weights, cfg)
 
 
-def params_from_hf(state: dict, cfg: ArchConfig, device=None) -> Transformer:
-    """A published Zamba2 checkpoint's state dict (``Zamba2ForCausalLM``'s
-    parameter names) -> a ``Transformer`` of ``cfg`` (a ``Zamba2Config``)
-    on ``device``, each weight copied in ``cfg.dtype``."""
-    if cfg.family != "zamba2":
-        raise ValueError(f"{cfg.name} is not the published Zamba2 layout")
-    return Transformer(zamba2_lib.weights_from_hf(state, cfg, device), cfg)
+def params_from_hf(state, cfg: ArchConfig, device=None) -> Transformer:
+    """A published checkpoint's state dict (``Zamba2ForCausalLM``'s or
+    ``GraniteMoeHybridForCausalLM``'s parameter names; any mapping, each
+    name read once) -> a ``Transformer`` of ``cfg`` (a ``Zamba2Config`` or
+    a ``GraniteMoeHybridConfig``) on ``device``, each weight copied in
+    ``cfg.dtype``."""
+    lib = published(cfg)
+    if lib is None:
+        raise ValueError(f"{cfg.name} is not a published layout (Zamba2, Granite 4.0-H)")
+    return Transformer(lib.weights_from_hf(state, cfg, device), cfg)
 
 
 def _leaves(sub):
@@ -264,7 +283,7 @@ def weights(model: Transformer, fn=lambda t: t) -> dict:
     for key in _STACKED:
         if hasattr(model, key):
             out[key] = [tree(b.tree()) for b in getattr(model, key)]
-    if model.cfg.family == "zamba2":
+    if hasattr(model, "shared_blocks"):
         out["shared_blocks"] = [tree(b.tree()) for b in model.shared_blocks]
         out["apps"] = [tree(a.params()) for a in model.apps]
     if model.shared_attn is not None:
@@ -499,6 +518,7 @@ def forward(model: Transformer, tokens: torch.Tensor,
     h = _constrain_tokens(_embed(model, tokens))  # gather
     if positions is None:
         positions = _positions(0, B, S, tokens.device, cfg.mrope)
+    lib = published(cfg)
     if cfg.family in ("dense", "vlm", "moe"):
         for blk in model.blocks:
             h = _remat(cfg, lambda hh, b=blk: _constrain_tokens(
@@ -506,8 +526,8 @@ def forward(model: Transformer, tokens: torch.Tensor,
     elif cfg.family == "ssm":
         for blk in model.blocks:
             h = _remat(cfg, lambda hh, b=blk: _constrain_tokens(_ssm_layer(b, hh)[0]), h)
-    elif cfg.family == "zamba2":
-        h = zamba2_lib.layers(model, h, positions)
+    elif lib is not None:
+        h = lib.layers(model, h, positions)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, positions)
     elif cfg.family == "audio":
@@ -528,8 +548,12 @@ def forward(model: Transformer, tokens: torch.Tensor,
 
 
 def _logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """The head over the final norm of h, divided by ``cfg.logits_scaling``
+    (the division applied to h, before the product: the same values for a
+    power of two, as Granite 4.0-H's 16 is, without a second [.., V] pass)."""
     h = L.rmsnorm(h, model.final_norm.gamma, model.cfg.norm_eps)
-    return h @ _head(model)
+    s = model.cfg.logits_scaling
+    return (h if s == 1.0 else h / s) @ _head(model)
 
 
 # --------------------------------------------------------------------------
@@ -545,8 +569,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     whisper's cross K, V [L, B, enc_len, Hkv, d_head].  ``dtype`` is the
     weights' (default ``cfg.dtype``)."""
     dt = dtype or L._dtype(cfg)
-    if cfg.family == "zamba2":
-        return zamba2_lib.init_cache(cfg, batch, max_len, device=device, dtype=dt)
+    lib = published(cfg)
+    if lib is not None:
+        return lib.init_cache(cfg, batch, max_len, device=device, dtype=dt)
     z = dict(dtype=dt, device=device)
     Lr = cfg.n_layers
 
@@ -578,21 +603,22 @@ def decode_step(model: Transformer, cache: dict,
     """One decode step: tokens [B, S] -> (updated cache, logits [B, S, V]).
 
     S == 1 attends to the cache; S > 1 is the prefill of an empty cache.
-    The cache's tensors are updated in place.  The published Zamba2's
-    decode step is ``zamba2.decode_static`` at position 'len', or at the
-    device position 'pos' (int64 [1]) where the cache holds one: the step
-    its ``DecodeGraph`` captures.
+    The cache's tensors are updated in place.  A published layout's
+    decode step is its module's ``decode_static`` at position 'len', or at
+    the device position 'pos' (int64 [1]) where the cache holds one: the
+    step its ``DecodeGraph`` captures.
     """
     cfg = model.cfg
     B, S = tokens.shape
     idx = cache["len"]
-    if cfg.family == "zamba2" and (idx or "pos" in cache):
+    lib = published(cfg)
+    if lib is not None and (idx or "pos" in cache):
         if S != 1:
             raise ValueError("a decode step after the prefill takes one token")
         at = cache.get("pos")
         if at is None:
             at = torch.tensor([idx], dtype=torch.long, device=tokens.device)
-        return dict(cache, len=idx + 1), zamba2_lib.decode_static(model, cache, tokens, at)
+        return dict(cache, len=idx + 1), lib.decode_static(model, cache, tokens, at)
     h = _constrain_tokens(_embed(model, tokens))
     pos = _positions(idx, B, S, tokens.device, cfg.mrope)
 
@@ -605,8 +631,8 @@ def decode_step(model: Transformer, cache: dict,
     elif cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             h = _ssm_step(blk, h, cache, i)
-    elif cfg.family == "zamba2":
-        h = zamba2_lib.layers(model, h, pos, cache=cache)
+    elif lib is not None:
+        h = lib.layers(model, h, pos, cache=cache)
     elif cfg.family == "hybrid":
         h = _hybrid_layers(model, h, pos, cache=cache)
     elif cfg.family == "audio":

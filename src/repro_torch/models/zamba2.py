@@ -193,18 +193,7 @@ def _attention(blk, u: torch.Tensor, cfg: ArchConfig, rope: tuple,
     v = (u @ p["wv"]).reshape(B, S, H, dh)
     if kv is not None:
         obs.count("lm.kv_bytes", 2 * k.numel() * k.element_size())
-    if kv is not None and "pos" in kv:
-        kv["k"].index_copy_(1, kv["pos"], k)
-        kv["v"].index_copy_(1, kv["pos"], v)
-        o = L._attend(q, kv["k"], kv["v"], False, cfg, scale=scale, kv_len=kv["kv_len"])
-    else:
-        if kv is not None:
-            if kv["len"]:
-                raise ValueError("a prefill fills an empty cache; a decode step "
-                                 "gives its position")
-            kv["k"][:, :S] = k
-            kv["v"][:, :S] = v
-        o = L._attend(q, k, v, True, cfg, scale=scale)
+    o = L.cached_attend(q, k, v, cfg, scale, kv)
     return o.reshape(B, S, H * dh) @ p["wo"]
 
 
@@ -282,7 +271,10 @@ def decode_static(model, cache: dict, tok: torch.Tensor, pos: torch.Tensor) -> t
 class DecodeGraph:
     """``transformer.decode_step`` over one cache at a device position
     (``decode_static``) captured in a CUDA graph, so a decode step costs one
-    replay on the host instead of ~5,000 launches.
+    replay on the host instead of ~5,000 launches; the published models'
+    (Zamba2's here, Granite 4.0-H's through ``models/granite4h.py``), whose
+    caches hold per-layer conv and SSM states ('conv', 'S') and per
+    attention K and V ('k', 'v').
     Build it on an empty cache, before the prefill: the warm-up step it
     runs writes the cache's last KV row (which no step of a batch of
     ``max_len - 1`` positions reads) and the conv and SSM states, which it
@@ -299,8 +291,8 @@ class DecodeGraph:
         B, R = cache["k"].shape[1], cache["k"].shape[2]
         self.tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
         self.pos = torch.full((1,), R - 1, dtype=torch.long, device=dev)
-        self.n_layers = model.cfg.n_layers
-        self.kv_bytes = 2 * model.cfg.n_apps * B * cache["k"][0, 0, 0].numel() * \
+        self.n_ssm = cache["S"].shape[0]
+        self.kv_bytes = 2 * cache["k"].shape[0] * B * cache["k"][0, 0, 0].numel() * \
             cache["k"].element_size()
         at = dict(cache, pos=self.pos)
         side = torch.cuda.Stream(dev)
@@ -328,7 +320,7 @@ class DecodeGraph:
         self.pos.fill_(idx)
         self.graph.replay()
         obs.count("lm.kv_bytes", self.kv_bytes)
-        obs.count("lm.ssm_chunks", self.n_layers)
+        obs.count("lm.ssm_chunks", self.n_ssm)
         return self.logits
 
 

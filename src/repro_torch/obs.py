@@ -1,6 +1,6 @@
 """The port's in-memory tracer: spans and counters at the layer boundaries
 of the three TNN paths (the serving service, the design sweep and the
-single column).
+single column) and of LM serving (``launch/serve.py`` and the models).
 
 Off by default.  With tracing off a boundary costs the one check of the
 module-global ``ON``: no clock read, no allocation, no device
@@ -25,12 +25,16 @@ With tracing on:
 * ``request`` keeps one record a served, shed or failed request:
   ``(rid, t_admitted, t_dispatched, t_done, status)``;
 * ``snapshot`` also reports, per CUDA kernel, the launches, ``nvcc``
-  builds and library binds between ``enable`` and ``disable`` (or now).
+  builds and library binds between ``enable`` and ``disable`` (or now);
+* ``device_span`` is a span that also records a pair of CUDA events on
+  the current stream at its ends; ``snapshot`` resolves them into the
+  device time between the two (``device_ms``, by span index).
 
 Nothing synchronises the device for the tracer: a span around an
 asynchronous launch times the launch, and device time lands in the span
-that waits for it.  Nothing is written to disk; the caller takes
-``snapshot()``.
+that waits for it (a ``device_span``'s events are read only at
+``snapshot``, after the caller's own synchronisation).  Nothing is
+written to disk; the caller takes ``snapshot()``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ _stack: list = []      # open spans, innermost last
 _counters: dict = {}
 _requests: list = []   # (rid, t_admitted, t_dispatched, t_done, status)
 _kernels: dict = {}    # kernel name -> [counts at enable(), at disable()]
+_events: list = []     # (span index, start event, end event) of device spans
 
 
 class _Noop:
@@ -73,18 +78,24 @@ NOOP = _Noop()
 
 
 class _Open:
-    __slots__ = ("i", "name", "t0", "t1", "parent", "attrs")
+    __slots__ = ("i", "name", "t0", "t1", "parent", "attrs", "start")
 
     def __init__(self, i: int, name: str, t0: float, parent: int,
                  attrs: tuple):
         self.i, self.name, self.t0, self.t1 = i, name, t0, None
-        self.parent, self.attrs = parent, attrs
+        self.parent, self.attrs, self.start = parent, attrs, None
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter() if self.t1 is None else self.t1
+        if self.start is not None:
+            import torch
+
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            _events.append((self.i, self.start, end))
         if _stack and _stack[-1] is self:
             _stack.pop()
             _spans[self.i] = (self.name, self.t0, t1, self.parent, self.attrs)
@@ -143,6 +154,7 @@ def reset() -> None:
     _counters.clear()
     _requests.clear()
     _kernels.clear()
+    _events.clear()
 
 
 def span(name: str, attrs: tuple = (), t0: Optional[float] = None):
@@ -154,6 +166,22 @@ def span(name: str, attrs: tuple = (), t0: Optional[float] = None):
               _stack[-1].i if _stack else -1, attrs)
     _spans.append(None)
     _stack.append(o)
+    return o
+
+
+def device_span(name: str, attrs: tuple = (), device=None):
+    """A span, as ``span``, that on a CUDA ``device`` also records a CUDA
+    event on the current stream where it begins and one where it ends;
+    ``snapshot`` gives the device time between them (``device_ms``).
+    Anywhere else, or with tracing off, a plain span (or none)."""
+    if not ON:
+        return NOOP
+    o = span(name, attrs)
+    if device is not None and getattr(device, "type", device) == "cuda":
+        import torch
+
+        o.start = torch.cuda.Event(enable_timing=True)
+        o.start.record()
     return o
 
 
@@ -197,8 +225,9 @@ def snapshot() -> dict:
     """Copies of what was recorded: ``spans`` [(name, t0, t1, parent,
     attrs)] in the order they began or were recorded (t1 None while
     open), ``counters``,
-    ``requests`` and ``kernels`` {name: {launches, builds, binds}} counted
-    inside the traced interval."""
+    ``requests``, ``kernels`` {name: {launches, builds, binds}} counted
+    inside the traced interval, and ``device_ms`` {span index: ms} of the
+    ended device spans (this waits for their end events)."""
     now = _kernel_counts() if _kernels else {}
     kernels = {}
     for name, (c0, c1) in _kernels.items():
@@ -213,4 +242,10 @@ def snapshot() -> dict:
         "counters": dict(_counters),
         "requests": list(_requests),
         "kernels": kernels,
+        "device_ms": {i: _elapsed(s, e) for i, s, e in _events},
     }
+
+
+def _elapsed(start, end) -> float:
+    end.synchronize()
+    return start.elapsed_time(end)

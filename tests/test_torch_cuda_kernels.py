@@ -949,6 +949,50 @@ def test_zamba2_decode_graph_equals_the_eager_decode(cuda_device):
     assert other is not kept and model.__dict__["_decode_graph"][1] is other
 
 
+def test_granite4h_decode_graph_equals_the_eager_decode(cuda_device):
+    """Granite 4.0-H's decode step as a CUDA graph (``zamba2.DecodeGraph``
+    over its cache, what ``launch.serve`` runs on the card; its MoE on the
+    static dropless path) against the eager decode step on the same card,
+    smoke config in f32: the same logits and routing bit for bit, step
+    after step; ``serve`` gives the eager greedy tokens, and the prefill's
+    logits match the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import granite4h
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("granite-4.0-h-small", smoke=True)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    model = T.Transformer(T.weights(cpu, lambda t: t.detach().to(cuda_device)), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        graph = granite4h.decode_graph(model, 2, 48)
+        _, l_card = T.prefill(model, tok[:, :33].to(cuda_device), max_len=48,
+                              cache=graph.cache)
+        _, l_cpu = T.prefill(cpu, tok[:, :33], max_len=48)
+        assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        eager, _ = T.prefill(model, tok[:, :33].to(cuda_device), max_len=48)
+        for t in range(33, 40):
+            x = tok[:, t: t + 1].to(cuda_device)
+            got = graph.step(x, t).clone()
+            route = graph.cache["route"].clone()
+            eager, want = T.decode_step(model, eager, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), t
+            assert torch.equal(route, eager["route"]), t
+        prompts = tok.to(cuda_device)
+        r = serve_lib.serve(cfg, tokens=6, device=cuda_device, model=model, prompts=prompts,
+                            keep=[1])
+        cache, lg = T.prefill(model, prompts, max_len=47)
+        toks = [lg[:, -1:, : cfg.vocab_size].argmax(-1)]
+        for _ in range(5):
+            cache, lg = T.decode_step(model, cache, toks[-1])
+            toks.append(lg[:, -1:, : cfg.vocab_size].argmax(-1))
+    assert np.array_equal(r.generations, torch.cat(toks, 1).cpu().numpy())
+    assert r.kept_taps["moe"].shape == (1, cfg.n_layers, 40, cfg.d_model)
+
+
 def test_flash_attention_refuses_bad_operands(cuda_device):
     from repro_torch.kernels import flash_attention as flash_lib
 
@@ -1160,6 +1204,43 @@ def test_ssd_scan_runs_once_a_mamba_layer_in_the_prefill(cuda_device):
     assert k.launches == before
 
 
+# (label, b, L, H, G, N, dh, chunk, initial state): the
+# granite-4.0-h-small.rag2k cell's prefill at B 2 (1,920 positions: 7
+# chunks of 256 and one of 128) on the (128, 64, 256) tile, whose C
+# fragments come from device memory, and a last chunk of one position
+SSD_CASES_N128 = [
+    ("rag2k", 2, 1920, 128, 1, 128, 64, 256, False),
+    ("rag2k_state", 2, 1920, 128, 1, 128, 64, 256, True),
+    ("ragged_by_one", 1, 513, 128, 1, 128, 64, 256, True),
+]
+
+
+@pytest.mark.parametrize("case", SSD_CASES_N128, ids=lambda c: c[0])
+def test_ssd_scan_kernel_matches_plain_at_the_n128_chunk256_tile(cuda_device, case):
+    """The (128, 64, 256) tile in bf16 (its only dtype) against
+    ``ssd_chunked_plain``, within the per-element bound of
+    ``test_ssd_scan_kernel_matches_plain``; one launch a call."""
+    from repro_torch.testing import ssd as ssd_test
+
+    _, b, L, H, G, N, dh, chunk, initial = case
+    ops = ssd_test.ssd_inputs(b, L, H, G, N, dh, torch.bfloat16, cuda_device, seed=L + H,
+                              initial=initial)
+    r = _ssd_check(ops, chunk)
+    assert ssd_test.holds(r), r
+
+
+def test_ssd_scan_refuses_float32_at_the_n128_chunk256_tile(cuda_device):
+    from repro_torch.kernels import ssd_scan as ssd_lib
+    from repro_torch.testing import ssd as ssd_test
+
+    x, dt, A, Bm, Cm, s0 = ssd_test.ssd_inputs(1, 300, 4, 1, 128, 64, torch.float32,
+                                              cuda_device).values()
+    with pytest.raises(ValueError, match="no float32 instantiation"):
+        ssd_lib.ssd_scan(x, dt, A, Bm, Cm, 256, s0)
+    ssd_lib.ssd_scan(x, dt, A, Bm, Cm, 128, s0)  # the (128, 64, 128) tile has both
+    torch.cuda.synchronize()
+
+
 def test_ssd_scan_refuses_bad_operands_on_the_card(cuda_device):
     from repro_torch.kernels import ssd_scan as ssd_lib
     from repro_torch.testing import ssd as ssd_test
@@ -1179,10 +1260,11 @@ def test_ssd_scan_refuses_bad_operands_on_the_card(cuda_device):
 
 # -------------------------------------------------------------- causal conv
 # (label, d_inner, G * N, SSD heads): the x | B | C widths of the
-# zamba2-7b-instruct.docs4k cell (C 7,424), of mamba2-370m (C 2,304) and an
-# odd smoke width (C 79: the one-element path in both dtypes)
+# zamba2-7b-instruct.docs4k cell (C 7,424), of mamba2-370m (C 2,304), an
+# odd smoke width (C 79: the one-element path in both dtypes) and of the
+# granite-4.0-h-small.rag2k cell (C 8,448)
 CONV_WIDTHS = [("docs4k", 7168, 128, 112), ("mamba2-370m", 2048, 128, 32),
-               ("odd", 61, 9, 3)]
+               ("odd", 61, 9, 3), ("rag2k", 8192, 128, 128)]
 CONV_LENGTHS = [1, 2, 3, 5, 256, 4032]
 
 

@@ -31,7 +31,7 @@ from repro_torch.testing import faults
 P, T_MAX = 12, 16
 GRID = STDPConfig(mu_capture=1.0, mu_backoff=1.0, mu_search=1.0,
                   stabilizer="none")
-EMPTY = {"spans": [], "counters": {}, "requests": [], "kernels": {}}
+EMPTY = {"spans": [], "counters": {}, "requests": [], "kernels": {}, "device_ms": {}}
 
 
 @pytest.fixture(autouse=True)

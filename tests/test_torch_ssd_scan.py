@@ -141,11 +141,30 @@ def test_ssd_scan_wrapper_refuses_before_building():
     assert _counts() == before
 
 
+def test_float32_at_a_bf16_only_tile_is_refused_before_building():
+    """The (128, 64, 256) tile has no float32 instantiation: the wrapper
+    refuses f32 operands whose chunk runs in it, before anything is built;
+    a chunk up to 128 runs in the (128, 64, 128) tile, which has both."""
+    before = _counts()
+    assert (128, 64, 256) in ssd_lib.SHAPES and (128, 64, 256) in ssd_lib.BF16_ONLY
+    assert ssd_lib.chunk_tile(128, 64, 129) == 256 and ssd_lib.chunk_tile(128, 64, 128) == 128
+    with FakeTensorMode():
+        conv = torch.empty((1, 300, 4 * 64 + 2 * 128), device="cuda")
+        x, Bm, Cm = torch.split(conv, [256, 128, 128], dim=-1)
+        ops = (x.reshape(1, 300, 4, 64), torch.empty((1, 300, 4), device="cuda"),
+               torch.empty((4,), device="cuda"), Bm.reshape(1, 300, 1, 128),
+               Cm.reshape(1, 300, 1, 128))
+        for chunk in (256, 129):
+            with pytest.raises(ValueError, match="no float32 instantiation"):
+                ssd_lib.ssd_scan(*ops, chunk)
+    assert _counts() == before
+
+
 def test_every_port_ssm_configuration_is_instantiated():
     """(N, head dim, chunk) of every SSM configuration of the port, full
     and smoke, has a tile equal to its chunk, and a cached prefill's
     shorter chunk (min(L, ssm_chunk)) the smallest tile that holds it."""
-    for arch in ("zamba2-7b-instruct", "zamba2-7b", "mamba2-370m"):
+    for arch in ("zamba2-7b-instruct", "granite-4.0-h-small", "zamba2-7b", "mamba2-370m"):
         for smoke in (False, True):
             cfg = get_arch(arch, smoke=smoke)
             N, dh, q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
