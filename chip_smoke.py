@@ -142,7 +142,13 @@ JAX or the JAX package.  Phases, each of which asserts:
     4,032, C 7,424, the in_proj output's x | B | C columns, with the
     layer's bias) through ``_causal_conv``, bit-equal to its plain
     version (out and new state), beside the plain version and its bound
-    (bytes: u in, out written once).
+    (bytes: u in, out written once); then the decode step's two kernels
+    (bf16) at a mamba layer of each LM cell (B 8: the docs4k cell's H 112,
+    G 2, N 64 and the rag2k cell's H 128, G 1, N 128) through
+    ``_one_token``, the states bit-equal to its plain version and y within
+    ``repro_torch.testing.ssm_step``'s bound, timed beside their bound
+    (bytes: S in and out, the window, z and y), ``_one_token`` and
+    ``_one_token_plain`` with the cell's out_proj, and that product alone.
 
 18. the TNN serving path, launch counters read around it: the streaming
     ``serve.ClusteringService`` over the seven Table II designs at
@@ -281,7 +287,7 @@ DSE_CPU_CHECKED = (10, 22)
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_TOKENS = "granite-3-8b", 4, 2048, 16
 # phase 22: (arch id, layers served (None: all), flash launches per prefill,
 # per decode step, SSD scan and causal conv launches per prefill: one of
-# each a mamba layer)
+# each a mamba layer, and two ssm_step launches a mamba layer a decode step)
 FAMILY_SERVING = (
     ("olmoe-1b-7b", None, 16, 0, 0),
     ("kimi-k2-1t-a32b", 1, 1, 0, 0),  # 61 layers of 384 experts: ~2 TB in bf16
@@ -1618,7 +1624,8 @@ def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
     and read just after: ``n_prefill`` flash launches a prefill (default
     one a layer) and ``n_decode`` a decode step, ``n_ssd`` SSD scan
     launches and as many causal conv launches a prefill (one each a mamba
-    layer; none a decode step), nothing else; then again,
+    layer; none a decode step) and 2 ``n_ssd`` decode-step kernel launches
+    a decode step (``ssm_step``), nothing else; then again,
     warm; then one prefill and four decode steps profiled.  Returns its
     numbers."""
     import torch
@@ -1644,17 +1651,18 @@ def lm_serving(T, serve_lib, cfg, build, dev, card, n_prefill=None, n_decode=0,
         f"{r.prefill_s * 1e3!r} ms, {LM_TOKENS} tokens, decode "
         f"{r.decode_s_per_token * 1e3!r} ms/token; launches={launches} (flash: "
         f"{n_prefill} a prefill + {LM_TOKENS - 1} x {n_decode} a decode step; "
-        f"ssd_scan and causal_conv: {n_ssd} a prefill each); peak "
+        f"ssd_scan and causal_conv: {n_ssd} a prefill each; ssm_step: 2 x {n_ssd} a "
+        f"decode step); peak "
         f"device memory {peak} B; logits finite={finite} | {card}")
     log(f"[{tag}] sample generations: {r.generations[:2, :8].tolist()}")
     assert launches == {k.name: 0 for k in build.KERNELS} | {
-        "flash_attention": want, "ssd_scan": n_ssd, "causal_conv": n_ssd}, (
-        cfg.name, launches, want, n_ssd)
+        "flash_attention": want, "ssd_scan": n_ssd, "causal_conv": n_ssd,
+        "ssm_step": (LM_TOKENS - 1) * 2 * n_ssd}, (cfg.name, launches, want, n_ssd)
     assert finite and r.generations.shape == (LM_BATCH, LM_TOKENS)
     assert r.prefill_logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded)
     assert int(r.generations.max()) < cfg.vocab_size
     out = dict(launches=launches["flash_attention"], ssd_launches=launches["ssd_scan"],
-               conv_launches=launches["causal_conv"],
+               conv_launches=launches["causal_conv"], step_launches=launches["ssm_step"],
                peak=peak, params=n_params,
                prefill_ms=r.prefill_s * 1e3, decode_ms=r.decode_s_per_token * 1e3)
     del r
@@ -1984,6 +1992,71 @@ def time_conv(timer, dev, card) -> tuple:
             f"(out, new state): {equal} | {card}")
         assert equal, "causal_conv differs from its plain version"
     return ms, plain_ms, b_ms, by
+
+
+# phase 17: a mamba layer's decode step at the two LM cells' widths, B 8:
+# zamba2-7b-instruct.docs4k's (G 2, N 64, H 112) and
+# granite-4.0-h-small.rag2k's (G 1, N 128, H 128)
+STEP_TIMED = ("zamba2-7b-instruct", "granite-4.0-h-small")
+STEP_BATCH = 8
+
+
+def step_bound(cfg, b: int, elem_bytes: int) -> int:
+    """Bytes of one decode step of a mamba layer up to out_proj's input: S
+    read and the new S written (f32); the window (the conv state's three
+    rows and the token's x | B | C), z and dt read, the new conv state and
+    y written; the taps, the bias, gamma and the three f32 vectors read
+    once."""
+    H, G, N, dh = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    di = H * dh
+    c = di + 2 * G * N
+    return (2 * 4 * b * H * N * dh + elem_bytes * b * (4 * c + di + H)
+            + elem_bytes * b * (3 * c + di) + elem_bytes * (5 * c + di) + 3 * 4 * H)
+
+
+def time_ssm_step(timer, dev, card, get_arch) -> dict:
+    """The decode step's kernels (bf16) at each ``STEP_TIMED`` cell's widths,
+    B 8: held to the plain version (``repro_torch.testing.ssm_step``: the
+    states bit-equal, y within its bound), then timed: the two launches
+    alone beside their bytes bound, ``_one_token`` and ``_one_token_plain``
+    with the cell's out_proj, and that out_proj product alone.  Returns
+    {arch: (ms, plain ms, bound ms, what bounds it, _one_token ms, out_proj
+    ms, the largest |difference| of y)}."""
+    import torch
+
+    from repro_torch.kernels import ssm_step as step_lib
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssm_step as step_test
+
+    bf = torch.bfloat16
+    out = {}
+    for arch in STEP_TIMED:
+        cfg = get_arch(arch)
+        p, proj, cache = step_test.step_inputs(cfg, STEP_BATCH, bf, dev, seed=cfg.ssm_heads)
+        r = step_test.agreement(ssm._one_token(p, proj, cfg, cache),
+                                ssm._one_token_plain(p, proj, cfg, cache), p, proj, cfg, cache)
+        p["out_proj"] = (torch.randn((cfg.d_inner, cfg.d_model), device=dev) * 0.02).to(bf)
+        args = (proj, cache["conv"], cache["S"], p["conv_w"], p.get("conv_b"), p["dt_bias"],
+                p["A_log"], p["D_skip"], p["norm"])
+        kw = dict(groups=cfg.ssm_groups, dt_min=cfg.dt_min, norm=cfg.ssm_norm,
+                  eps=cfg.norm_eps if cfg.ssm_norm == "grouped" else ssm.RMSNORM_EPS)
+        y = step_lib.ssm_step(*args, **kw)[0]
+        ms = timer(lambda: step_lib.ssm_step(*args, **kw), 200)
+        token_ms = timer(lambda: ssm._one_token(p, proj, cfg, cache), 200)
+        plain_ms = timer(lambda: ssm._one_token_plain(p, proj, cfg, cache), 50)
+        proj_ms = timer(lambda: y @ p["out_proj"], 200)
+        n_bytes = step_bound(cfg, STEP_BATCH, 2)
+        b_ms, by = bound_ms(n_bytes, 0)
+        log(f"[time] ssm_step {arch} decode layer: B={STEP_BATCH} H={cfg.ssm_heads} "
+            f"G={cfg.ssm_groups} N={cfg.ssm_state} dh={cfg.ssm_head_dim} bf16 ms={ms!r} "
+            f"(the two launches) bound_ms={b_ms!r} ({by}; {n_bytes} B); _one_token "
+            f"ms={token_ms!r}, _one_token_plain ms={plain_ms!r}, both with out_proj "
+            f"[{cfg.d_inner}, {cfg.d_model}] alone ms={proj_ms!r}; against the plain "
+            f"version: {r} (states equal, y ratio <= 1) | {card}")
+        assert step_test.holds(r), ("ssm_step differs", arch, r)
+        out[arch] = (ms, plain_ms, b_ms, by, token_ms, proj_ms, r["max_abs"])
+        del p, proj, cache, y
+    return out
 
 
 def family_check(T, moe_lib, cfg_full, dev, card) -> None:
@@ -3312,6 +3385,7 @@ def main() -> int:
     rows["ssd"], err["ssd_scan"] = time_ssd(timer, dev, card)
     time_ssd(timer, dev, card, SSD_TIMED_RAG2K, "granite-4.0-h-small")
     rows["conv"] = time_conv(timer, dev, card)
+    rows["step"] = time_ssm_step(timer, dev, card, get_arch)
     log(f"[serve] {LM_ARCH} prefill ms={lm['prefill_ms']!r} decode ms/token="
         f"{lm['decode_ms']!r} peak device memory {lm['peak']} B | {card}")
 
@@ -3398,6 +3472,19 @@ def main() -> int:
                  "x | B | C columns (one layer of the zamba2-7b-instruct.docs4k "
                  "prefill); launches: a zamba2-7b prefill's".format(
                      CONV_TIMED[0], CONV_TIMED[1], CONV_TIMED[2] + 2 * CONV_TIMED[3]),
+    })
+    k = build.SSM_STEP
+    ms, plain, b_ms, by, token_ms, proj_ms, max_abs = rows["step"]["zamba2-7b-instruct"]
+    entries.append({
+        "name": k.name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k.source}",
+        "replaces": None, "launches": families["zamba2-7b"]["step_launches"],
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain - proj_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "shape": f"B={STEP_BATCH} H=112 G=2 N=64 dh=64 bf16 (one mamba layer of the "
+                 f"zamba2-7b-instruct.docs4k decode step, two launches); plain_ms: "
+                 f"_one_token_plain less its out_proj product; launches: a zamba2-7b "
+                 f"serving run's {LM_TOKENS - 1} decode steps",
     })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

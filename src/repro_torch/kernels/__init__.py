@@ -14,6 +14,8 @@
 #                  imported by models.ssm, not here, for the same reason
 #   causal_conv  — the SSM prefill's causal conv, bias and SiLU
 #                  (csrc/causal_conv.cu); imported by models.ssm too
+#   ssm_step     — the SSM decode step's mixer up to out_proj's input
+#                  (csrc/ssm_step.cu); imported by models.ssm too
 #   ops          — the public entry points: column_forward, rnl_fire,
 #                  stdp_step, train_volleys
 # ref.py holds the plain oracles; build.py compiles csrc/ with nvcc at

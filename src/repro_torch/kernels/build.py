@@ -300,5 +300,20 @@ CAUSAL_CONV = CudaKernel(
     headers=(),
 )
 
+# a kernel for a jnp path of the JAX package: its conv step, step sizes and
+# state update are bit-equal to its plain version (explicit _rn intrinsics,
+# addcmul's FMA; SiLU, softplus and exp as ATen writes them, under nvcc's
+# default flags), its y and norm within a bound (kernels/ssm_step.py); one
+# call is two launches
+SSM_STEP = CudaKernel(
+    name="ssm_step",
+    source="ssm_step.cu",
+    symbol="ssm_step",
+    argtypes=(_P,) * 14 + (_I, _L) + (_I,) * 5 + (_F, _I, _I, _F, _I, _P),
+    replaces="none: src/repro/models/ssm.py runs a decode token as a jnp chunk of one",
+    flags=(),
+    headers=(),
+)
+
 KERNELS = (FUSED_STEP, RNL_FIRE, FUSED_BLOCK, FIRE_BLOCK, FIRE_FLOAT,
-           STDP_UPDATE, FLASH_ATTENTION, SSD_SCAN, CAUSAL_CONV)
+           STDP_UPDATE, FLASH_ATTENTION, SSD_SCAN, CAUSAL_CONV, SSM_STEP)

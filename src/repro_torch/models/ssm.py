@@ -29,7 +29,8 @@ decay mask is [B, n_chunks, H, q, q]: at chunk 256 a 4032-token prompt of
 zamba2-7b-instruct at batch 8 (H 112) makes it 3.8 GB in f32; on the card
 ``ssd_chunked`` runs the scan as one kernel that keeps the mask on chip.
 The causal conv before it runs on the card as one kernel too
-(``_causal_conv``), bit-equal to its plain version.
+(``_causal_conv``), bit-equal to its plain version, and a decode step's
+token (``_one_token``) as two, from the in_proj output to out_proj's input.
 """
 from __future__ import annotations
 
@@ -40,10 +41,14 @@ import torch
 from repro_torch import obs
 from repro_torch.kernels import causal_conv as conv_lib
 from repro_torch.kernels import ssd_scan as ssd_lib
+from repro_torch.kernels import ssm_step as step_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _acc, _dtype, _is_dtensor, dense_init, rmsnorm
 
 CONV_K = 4  # mamba2 depthwise conv width
+# the eps of _gated_norm's 'rmsnorm' form (the JAX package's: its
+# rmsnorm's default)
+RMSNORM_EPS = 1e-6
 
 
 def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, *, device=None) -> dict:
@@ -333,17 +338,44 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
     if cfg.ssm_norm == "grouped":
         return gated_rmsnorm(y, z, gamma, cfg.ssm_groups, cfg.norm_eps)
     y = y * torch.nn.functional.silu(z.to(_acc(y.dtype))).to(y.dtype)
-    return rmsnorm(y, gamma)
+    return rmsnorm(y, gamma, RMSNORM_EPS)
 
 
 def _one_token(params: dict, proj: torch.Tensor, cfg: ArchConfig,
                cache: dict) -> tuple[torch.Tensor, dict]:
     """One token through the block from its in_proj output proj [B, 1, ..]
-    and the layer's caches: the conv as one product over its window and the
-    SSD as one step of its recurrence, S = exp(dt A) S + dt B x^T, y = C . S
-    + D x, in f32 (float64 for a float64 model) on the model-dtype values;
-    what a chunk of one token computes, in fewer launches.  Returns (y [B,
-    1, D], the new states), as ``ssm_block_apply``."""
+    and the layer's caches {'conv', 'S'}, which it reads and does not write.
+    Returns (y [B, 1, D], the new states), as ``ssm_block_apply``.
+
+    CUDA tensors in bfloat16 or float32 with no gradient required run the
+    kernels ``csrc/ssm_step.cu`` (``kernels.ssm_step``, two launches, up to
+    out_proj's input: the states bit-equal, y within
+    ``repro_torch.testing.ssm_step``'s bound); everything else runs
+    ``_one_token_plain``: CPU tensors, float64, and autograd (the kernels
+    have no backward).
+    """
+    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D_skip", "norm")
+    tensors = [proj, cache["conv"], cache["S"]] + [params[k] for k in keys if k in params]
+    if not (proj.device.type == "cuda" and proj.dtype in (torch.bfloat16, torch.float32)
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
+        return _one_token_plain(params, proj, cfg, cache)
+    grouped = cfg.ssm_norm == "grouped"
+    y, conv, S = step_lib.ssm_step(
+        proj, cache["conv"], cache["S"], params["conv_w"], params.get("conv_b"),
+        params["dt_bias"], params["A_log"], params["D_skip"], params["norm"],
+        groups=cfg.ssm_groups, dt_min=cfg.dt_min, norm=cfg.ssm_norm,
+        eps=cfg.norm_eps if grouped else RMSNORM_EPS)
+    obs.count("lm.ssm_chunks", 1)
+    return y @ params["out_proj"], {"conv": conv, "S": S}
+
+
+def _one_token_plain(params: dict, proj: torch.Tensor, cfg: ArchConfig,
+                     cache: dict) -> tuple[torch.Tensor, dict]:
+    """``_one_token`` in plain PyTorch (its arguments and result): the conv
+    as one product over its window and the SSD as one step of its
+    recurrence, S = exp(dt A) S + dt B x^T, y = C . S + D x, in f32
+    (float64 for a float64 model) on the model-dtype values; what a chunk
+    of one token computes, in fewer launches."""
     Di, N, H, dh, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
     Bsz, dtype = proj.shape[0], proj.dtype
     ct = _acc(dtype)

@@ -1392,6 +1392,145 @@ def test_causal_conv_refuses_bad_operands_on_the_card(cuda_device):
     torch.cuda.synchronize()
 
 
+# ------------------------------------------------------- the decode step
+# (label, arch id, smoke): the zamba2-7b-instruct.docs4k cell's mamba layer
+# (G 2, N 64, H 112, a conv bias, dt clamped at 1e-3, the grouped norm),
+# the granite-4.0-h-small.rag2k cell's (G 1, N 128, H 128, a conv bias, dt
+# not clamped) and the 'rmsnorm' form at mamba2-370m's smoke widths (G 1,
+# N 16, H 8, dh 16, no bias)
+STEP_CASES = [("docs4k", "zamba2-7b-instruct", False),
+              ("rag2k", "granite-4.0-h-small", False),
+              ("rmsnorm_smoke", "mamba2-370m", True)]
+
+
+def _step_check(cfg, b: int, dtype, dev, seed: int) -> dict:
+    """One decode step of a layer through ``_one_token`` (two launches)
+    against ``_one_token_plain`` on the same card, out_proj the identity
+    (``repro_torch.testing.ssm_step``); the cache passed in unchanged."""
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssm_step as step_test
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p, proj, cache = step_test.step_inputs(cfg, b, dtype, dev, seed=seed)
+    kept = {k: v.clone() for k, v in cache.items()}
+    before = build.SSM_STEP.launches
+    got = ssm._one_token(p, proj, cfg, cache)
+    torch.cuda.synchronize()
+    assert build.SSM_STEP.launches == before + 2
+    assert all(torch.equal(cache[k], kept[k]) for k in cache)
+    want = ssm._one_token_plain(p, proj, cfg, cache)
+    assert got[0].dtype == got[1]["conv"].dtype == dtype and got[1]["S"].dtype == torch.float32
+    return step_test.agreement(got, want, p, proj, cfg, cache)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: c[0])
+def test_ssm_step_kernel_matches_plain(cuda_device, case, b, dtype):
+    """``csrc/ssm_step.cu`` against ``_one_token_plain`` on the card: the
+    new conv state and the new SSM state bit-equal (the plain version's
+    order: taps, step sizes, decay, state update), y per element within
+    ``repro_torch.testing.ssm_step``'s bound (C . S' and the norm's mean
+    summed in another order, and the roundings after them falling the
+    other way); the cache passed in unchanged; two launches a call."""
+    from repro_torch import configs
+    from repro_torch.testing import ssm_step as step_test
+
+    _, arch, smoke = case
+    r = _step_check(configs.get_arch(arch, smoke=smoke), b, dtype, cuda_device, seed=b)
+    assert step_test.holds(r), r
+
+
+def test_ssm_step_in_a_cuda_graph_replays_the_eager_result(cuda_device):
+    """The step captured in a CUDA graph (as ``DecodeGraph`` captures the
+    decode step) and replayed on new inputs gives the eager step's y and
+    states bit for bit, at the docs4k cell's widths, B 8, bf16."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    from repro_torch.testing import ssm_step as step_test
+
+    cfg = configs.get_arch("zamba2-7b-instruct")
+    p, proj, cache = step_test.step_inputs(cfg, 8, torch.bfloat16, cuda_device, seed=1)
+    _, proj2, cache2 = step_test.step_inputs(cfg, 8, torch.bfloat16, cuda_device, seed=2)
+    s_proj, s_cache = proj.clone(), {k: v.clone() for k, v in cache.items()}
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        ssm._one_token(p, s_proj, cfg, s_cache)  # warm-up
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = build.SSM_STEP.launches
+    with torch.cuda.graph(graph):
+        out = ssm._one_token(p, s_proj, cfg, s_cache)
+    assert build.SSM_STEP.launches == before + 2
+    for x, c in ((proj, cache), (proj2, cache2), (proj, cache)):
+        s_proj.copy_(x)
+        for k in c:
+            s_cache[k].copy_(c[k])
+        graph.replay()
+        want = ssm._one_token(p, x, cfg, c)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0])
+        assert all(torch.equal(out[1][k], want[1][k]) for k in ("conv", "S"))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b-instruct", "granite-4.0-h-small", "mamba2-370m"])
+def test_ssm_step_runs_twice_a_mamba_layer_a_decode_step(cuda_device, arch):
+    """A smoke model (f32) on the card: a decode step launches the kernels
+    twice a mamba layer, a prefill never; three decode steps' logits match
+    the CPU's."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch(arch, smoke=True)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = T.Transformer(T.weights(cpu, lambda t: t.detach().to(cuda_device)), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    k = build.SSM_STEP
+    with torch.inference_mode():
+        before = k.launches
+        c_card, _ = T.prefill(card, toks[:, :37].to(cuda_device), max_len=40)
+        c_cpu, _ = T.prefill(cpu, toks[:, :37], max_len=40)
+        assert k.launches == before
+        for t in range(37, 40):
+            before = k.launches
+            c_card, l_card = T.decode_step(card, c_card, toks[:, t: t + 1].to(cuda_device))
+            assert k.launches == before + 2 * c_card["S"].shape[0]
+            c_cpu, l_cpu = T.decode_step(cpu, c_cpu, toks[:, t: t + 1])
+            assert _rel(l_card.cpu(), l_cpu) < 1e-4
+
+
+def test_ssm_step_refuses_bad_operands_on_the_card(cuda_device):
+    from repro_torch import configs
+    from repro_torch.kernels import ssm_step as step_lib
+    from repro_torch.testing import ssm_step as step_test
+
+    cfg = configs.get_arch("zamba2-7b-instruct", smoke=True)
+    p, proj, cache = step_test.step_inputs(cfg, 2, torch.bfloat16, cuda_device)
+    kw = dict(groups=cfg.ssm_groups, dt_min=cfg.dt_min, norm=cfg.ssm_norm, eps=cfg.norm_eps)
+    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D_skip", "norm")
+
+    def call(p, proj, S, **over):
+        return step_lib.ssm_step(proj, cache["conv"], S, *(p[k] for k in keys),
+                                 **dict(kw, **over))
+
+    before = build.SSM_STEP.launches
+    with pytest.raises(ValueError):
+        call(dict(p, conv_w=p["conv_w"].cpu()), proj, cache["S"])
+    with pytest.raises(ValueError):
+        call(p, proj, cache["S"].to(torch.bfloat16))
+    with pytest.raises(ValueError):  # a head dim the kernel does not take
+        call(p, proj, cache["S"][..., :6].contiguous())
+    with pytest.raises(ValueError):
+        call(p, proj, cache["S"].transpose(2, 3))
+    with pytest.raises(ValueError):
+        call(p, proj, cache["S"], norm="layernorm")
+    assert build.SSM_STEP.launches == before
+    call(p, proj, cache["S"])  # well formed
+    torch.cuda.synchronize()
+
+
 # ----------------------------------------------------------------- serving
 def _serving_fleet():
     """Four integer-grid designs (mus 1/1/1, no stabilizer) in two

@@ -347,3 +347,235 @@ def test_bf16_block_keeps_the_jax_dtypes():
     y32, _ = ssm.ssm_block_apply(t32, h, cfg)
     assert y.dtype == c["conv"].dtype == torch.bfloat16 and c["S"].dtype == torch.float32
     assert _rel_err(y.float().numpy(), y32.numpy()) < 3e-2
+
+
+# ---------------------------------------------- the decode step's dispatch
+STEP_ARCHS = ["zamba2-7b-instruct", "granite-4.0-h-small", "mamba2-370m"]
+
+
+def _step_counts():
+    k = build.SSM_STEP
+    return (k.launches, k.builds, k.binds)
+
+
+def _fake_step_operands(cfg, dtype, b=2):
+    """``_one_token``'s operands as fake CUDA tensors, at ``cfg``'s widths:
+    the block's weights, an in_proj output [b, 1, W] and the states."""
+    H, G, N, dh = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    di = H * dh
+    c = di + 2 * G * N
+
+    def e(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="cuda")
+
+    params = {"conv_w": e(ssm.CONV_K, c), "A_log": e(H, dt=F32), "D_skip": e(H, dt=F32),
+              "dt_bias": e(H, dt=F32), "norm": e(di), "out_proj": e(di, cfg.d_model)}
+    if cfg.conv_bias:
+        params["conv_b"] = e(c)
+    cache = {"conv": e(b, ssm.CONV_K - 1, c), "S": e(b, H, N, dh, dt=F32)}
+    return params, e(b, 1, di + c + H), cache
+
+
+@pytest.mark.parametrize("dtype", [F32, BF, F64], ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_one_token_on_cpu_runs_the_plain_body(monkeypatch, dtype, arch):
+    """CPU tensors take ``_one_token_plain``, bit for bit, and touch no
+    kernel object."""
+    from repro_torch.kernels import ssm_step as step_lib
+    from repro_torch.testing import ssm_step as step_test
+
+    before = _step_counts()
+    monkeypatch.setattr(step_lib, "ssm_step", _refuse)
+    cfg = configs.get_arch(arch, smoke=True)
+    p, proj, cache = step_test.step_inputs(cfg, 2, BF if dtype == BF else F32, "cpu", seed=5)
+    if dtype == F64:
+        p = {k: v.double() for k, v in p.items()}
+        proj, cache = proj.double(), {k: v.double() for k, v in cache.items()}
+    y, new = ssm._one_token(p, proj, cfg, cache)
+    want, want_new = ssm._one_token_plain(p, proj, cfg, cache)
+    assert y.dtype == new["conv"].dtype == dtype
+    assert torch.equal(y, want) and all(torch.equal(new[k], want_new[k]) for k in new)
+    assert _step_counts() == before
+
+
+@pytest.mark.parametrize("dtype,req,grad,kernel", CONV_DISPATCH,
+                         ids=["bf16", "f32", "f64", "f32_grad", "bf16_grad", "f32_no_grad"])
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_one_token_dispatch_on_cuda_tensors(monkeypatch, dtype, req, grad, kernel, arch):
+    """On (fake) CUDA tensors: bf16 and f32 without a gradient go to the
+    kernels' wrapper with the config's groups, clamp, norm and eps, and its
+    y goes through out_proj; float64 and autograd go to the plain body;
+    neither path builds anything here."""
+    from repro_torch.kernels import ssm_step as step_lib
+
+    cfg = configs.get_arch(arch)
+    calls = []
+
+    def kernel_stub(*a, **kw):
+        calls.append(("kernel", a, kw))
+        b, di = a[0].shape[0], a[-1].shape[0]
+        return (torch.empty((b, 1, di), dtype=a[0].dtype, device="cuda"), a[1], a[2])
+
+    monkeypatch.setattr(step_lib, "ssm_step", kernel_stub)
+    monkeypatch.setattr(ssm, "_one_token_plain", lambda *a: calls.append(("plain", a)))
+    before = _step_counts()
+    with FakeTensorMode():
+        p, proj, cache = _fake_step_operands(cfg, dtype)
+        p["in_proj"] = torch.empty((1,), device="cuda").requires_grad_(True)  # not read
+        p["conv_w"].requires_grad_(req)
+        with torch.set_grad_enabled(grad):
+            out = ssm._one_token(p, proj, cfg, cache)
+    assert [c[0] for c in calls] == ["kernel" if kernel else "plain"]
+    if kernel:
+        _, args, kw = calls[0]
+        assert args == (proj, cache["conv"], cache["S"], p["conv_w"], p.get("conv_b"),
+                        p["dt_bias"], p["A_log"], p["D_skip"], p["norm"])
+        grouped = cfg.ssm_norm == "grouped"
+        assert kw == dict(groups=cfg.ssm_groups, dt_min=cfg.dt_min, norm=cfg.ssm_norm,
+                          eps=cfg.norm_eps if grouped else ssm.RMSNORM_EPS)
+        assert out[0].shape == (2, 1, cfg.d_model)
+        assert out[1]["conv"] is cache["conv"] and out[1]["S"] is cache["S"]
+    else:
+        assert calls[0][1] == (p, proj, cfg, cache)
+    assert _step_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_one_token_writes_nothing_into_its_cache(dtype, arch):
+    """The states passed in are read, never written: the cache is the same
+    after the step, and the new states are other tensors."""
+    from repro_torch.testing import ssm_step as step_test
+
+    cfg = configs.get_arch(arch, smoke=True)
+    p, proj, cache = step_test.step_inputs(cfg, 3, dtype, "cpu", seed=7)
+    kept = {k: v.clone() for k, v in cache.items()}
+    _, new = ssm._one_token(p, proj, cfg, cache)
+    assert all(torch.equal(cache[k], kept[k]) for k in cache)
+    assert all(new[k].data_ptr() != cache[k].data_ptr() for k in cache)
+    assert not torch.equal(new["S"], kept["S"])
+
+
+@pytest.mark.parametrize("fault", ["a decode step reads a stale conv state",
+                                   "a decode step reads a stale SSM state"])
+@pytest.mark.parametrize("arch", ["zamba2-7b-instruct", "granite-4.0-h-small"])
+def test_lm_faults_decode_faults_still_change_one_token(monkeypatch, fault, arch):
+    """``nspubench.lm_faults`` plants its two decode faults by wrapping
+    ``ssm._one_token``: at the smoke size each still changes what a decode
+    step through ``ssm_block_apply`` returns (the stale conv state y, the
+    stale SSM state the new state), so the dispatch inside ``_one_token``
+    left them armed."""
+    from nspubench import lm_faults
+    from repro_torch.testing import ssm_step as step_test
+
+    cfg = configs.get_arch(arch, smoke=True)
+    p, _, cache = step_test.step_inputs(cfg, 2, F32, "cpu", seed=11)
+    p["in_proj"] = 0.3 * torch.randn((cfg.d_model, p["conv_w"].shape[1] + cfg.d_inner
+                                      + cfg.ssm_heads), generator=torch.Generator().manual_seed(1))
+    h = torch.randn((2, 1, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    y, new = ssm.ssm_block_apply(p, h, cfg, cache=cache)
+    lm_faults.plant(fault, monkeypatch.setattr)
+    y2, new2 = ssm.ssm_block_apply(p, h, cfg, cache=cache)
+    if "conv" in fault:
+        assert _rel_err(y2, y) > 1e-3
+    else:
+        assert torch.equal(y2, y) and _rel_err(new2["S"], new["S"]) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("arch,smoke,b", [("zamba2-7b-instruct", False, 2),
+                                          ("granite-4.0-h-small", False, 1),
+                                          ("mamba2-370m", False, 2),
+                                          ("mamba2-370m", True, 3),
+                                          ("zamba2-7b-instruct", True, 3)])
+def test_ssm_step_twin_holds_the_bound_a_fault_does_not(dtype, arch, smoke, b):
+    """A CPU copy of the kernels' arithmetic (``testing.ssm_step.twin``: y =
+    C . S' in the kernel's order) against ``_one_token_plain``: the states
+    bit-equal, y within the card tests' per-element bound; the plain body
+    with the D skip dropped reads far over it."""
+    from repro_torch.testing import ssm_step as step_test
+
+    cfg = configs.get_arch(arch, smoke=smoke)
+    p, proj, cache = step_test.step_inputs(cfg, b, dtype, "cpu", seed=b)
+    want = ssm._one_token_plain(p, proj, cfg, cache)
+    r = step_test.agreement(step_test.twin(p, proj, cfg, cache), want, p, proj, cfg, cache)
+    assert step_test.holds(r), r
+    bad = ssm._one_token_plain(dict(p, D_skip=0 * p["D_skip"]), proj, cfg, cache)
+    assert step_test.agreement(bad, want, p, proj, cfg, cache)["ratio"] > 100
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b-instruct", "granite-4.0-h-small", "zamba2-7b",
+                                  "mamba2-370m"])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_ssm_step_takes_every_ssm_config_of_the_port(arch, smoke):
+    """Every SSM configuration of the port, full and smoke, is in the
+    kernels' range (a head dim a multiple of 4, at most 512; the shared
+    memory under 48 KB), so none raises on the card."""
+    from repro_torch.kernels import ssm_step as step_lib
+
+    cfg = configs.get_arch(arch, smoke=smoke)
+    dh = cfg.ssm_head_dim
+    assert dh % 4 == 0 and 4 <= dh <= 4 * step_lib.THREADS
+    assert step_lib.smem_bytes(cfg.ssm_state, dh) <= step_lib.MAX_SMEM_BYTES
+    assert cfg.ssm_heads % cfg.ssm_groups == 0 and cfg.ssm_norm in step_lib.NORMS
+
+
+def test_ssm_step_wrapper_refuses_before_building():
+    """The wrapper's checks raise ValueError, before anything is built or
+    launched, for CPU tensors, mixed devices, other dtypes, wrong shapes,
+    an unknown norm and a strided proj or S."""
+    from repro_torch.kernels import ssm_step as step_lib
+
+    before = _step_counts()
+    cfg = configs.get_arch("zamba2-7b-instruct", smoke=True)
+    kw = dict(groups=cfg.ssm_groups, dt_min=cfg.dt_min, norm="grouped", eps=1e-5)
+    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D_skip", "norm")
+
+    def call(p, proj, cache, **over):
+        return step_lib.ssm_step(proj, cache["conv"], cache["S"], *(p[k] for k in keys),
+                                 **dict(kw, **over))
+
+    from repro_torch.testing import ssm_step as step_test
+
+    p, proj, cache = step_test.step_inputs(cfg, 2, BF, "cpu")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        call(p, proj, cache)
+    with FakeTensorMode():
+        p, proj, cache = _fake_step_operands(cfg, BF)
+        H, N, dh = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+
+        def cuda(shape, dtype=BF, stride=None):
+            if stride is None:
+                return torch.empty(shape, dtype=dtype, device="cuda")
+            return torch.empty_strided(shape, stride, dtype=dtype, device="cuda")
+
+        with pytest.raises(ValueError, match="one CUDA device"):
+            call(dict(p, norm=torch.zeros(p["norm"].shape, dtype=BF)), proj, cache)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            call({k: v.double() if v.dtype == BF else v for k, v in p.items()},
+                 cuda(proj.shape, F64), dict(cache, conv=cuda(cache["conv"].shape, F64)))
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            call(dict(p, conv_w=cuda(p["conv_w"].shape, F32)), proj, cache)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            call(p, proj, dict(cache, S=cuda(cache["S"].shape, BF)))
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            call(dict(p, A_log=cuda((H,), BF)), proj, cache)
+        with pytest.raises(ValueError, match="not one of"):
+            call(p, proj, cache, norm="layernorm")
+        with pytest.raises(ValueError, match=r"S \[B, H, N, dh\]"):
+            call(p, cuda((2, 2, proj.shape[-1])), cache)
+        with pytest.raises(ValueError, match="needs"):
+            call(p, cuda((2, 1, proj.shape[-1] + 1)), cache)
+        with pytest.raises(ValueError, match="needs"):
+            call(dict(p, conv_b=cuda((p["conv_b"].shape[0] - 1,))), proj, cache)
+        with pytest.raises(ValueError, match="needs"):
+            call(p, proj, cache, groups=3)
+        with pytest.raises(ValueError, match="head dim"):
+            call(p, proj, dict(cache, S=cuda((2, H, N * 2, dh // 2 + 2), F32)),
+                 groups=cfg.ssm_groups)
+        with pytest.raises(ValueError, match="innermost stride"):
+            w = proj.shape[-1]
+            call(p, cuda((2, 1, w), BF, (2 * w, 2 * w, 2)), cache)
+        with pytest.raises(ValueError, match="contiguous"):
+            call(p, proj, dict(cache, S=cuda((2, H, N, dh), F32, (H * N * dh, N * dh, 1, N))))
+    assert _step_counts() == before
