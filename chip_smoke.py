@@ -1898,6 +1898,47 @@ def time_flash(flash_lib, timer, dev, card) -> dict:
     return out
 
 
+# phase 17: MLA's expanded prefill at the kanana-2-30b-a3b-instruct.longdoc32k
+# cell's shape, one launch a layer and prompt row: (B, S, heads, Q and K's
+# head dim, V's), causal, scale 192^-1/2
+MLA_TIMED = (1, 32704, 32, 192, 128)
+
+
+def time_flash_mla(flash_lib, timer, dev, card) -> tuple:
+    """The flash kernel's 192 / 128 instantiation (bf16,
+    ``tc::flash_mla_kernel<192, 128>``) at the cell's prefill row: held per
+    element against the plain version in f32 on the same values (one bf16
+    rounding plus 1e-5 of the largest output), then timed beside the plain
+    version; the bound counts 2 (192 + 128) a causal pair a head (the
+    split P's second P·V uncounted).  Returns (ms, plain ms, bound ms,
+    what bounds it)."""
+    import torch
+
+    b, s, h, dqk, dv = MLA_TIMED
+    g = torch.Generator(device=dev).manual_seed(33)
+    q, k = (torch.randn((b, s, h, dqk), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=g, device=dev).to(torch.bfloat16)
+    got = flash_lib.flash_attention(q, k, v, True)
+    ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), True)
+    bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+    ratio = float(((got.float() - ref32).abs() / bound).max())
+    del ref32, bound, got
+    ms = timer(lambda: flash_lib.flash_attention(q, k, v, True), 5)
+    plain_ms = timer(lambda: flash_lib.flash_attention_plain(q, k, v, True), 1, warmup=1)
+    pairs = s * (s + 1) // 2
+    n_ops = (2 * dqk + 2 * dv) * pairs * b * h
+    n_bytes = 2 * b * h * s * (2 * dqk + 2 * dv)
+    b_ms, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    log(f"[time] flash_attention MLA prefill row: B={b} S={s} H={h} d={dqk}/{dv} bf16 "
+        f"causal ms={ms!r} plain_ms={plain_ms!r} bound_ms={b_ms!r} ({by}; {n_bytes} B, "
+        f"{n_ops} ops); per element against f32, largest |d| / (u|ref| + 1e-5 "
+        f"max|ref|)={ratio} (<= 1) | {card}")
+    assert ratio <= 1, ("flash_attention differs per element at MLA's dims", ratio)
+    del q, k, v
+    return ms, plain_ms, b_ms, by
+
+
 # phase 17: the SSD scan at the zamba2-7b-instruct.docs4k cell's prefill
 # shape (b, L, H, G, N, dh, chunk): B 8 x 4,032, chunks of 256; and at the
 # granite-4.0-h-small.rag2k cell's: B 8 x 1,920, N 128 (the (128, 64, 256)
@@ -3382,6 +3423,7 @@ def main() -> int:
         fused_column, rnl_response, timer, dev, card)
     flash_rows = time_flash(flash_lib, timer, dev, card)
     rows["flash"] = flash_rows[FLASH_TIMED[0][0]]
+    time_flash_mla(flash_lib, timer, dev, card)
     rows["ssd"], err["ssd_scan"] = time_ssd(timer, dev, card)
     time_ssd(timer, dev, card, SSD_TIMED_RAG2K, "granite-4.0-h-small")
     rows["conv"] = time_conv(timer, dev, card)

@@ -5,7 +5,8 @@ Each arch module exposes ``full()`` (the exact published config) and
 ``smoke()`` (a reduced CPU-testable config), as in the JAX package, for
 all ten of its ids (``ARCH_IDS``).  ``PORT_ONLY`` holds the ids the
 JAX package has no twin of (``zamba2-7b-instruct``, Zamba2 as published;
-``granite-4.0-h-small``, Granite 4.0-H as published);
+``granite-4.0-h-small``, Granite 4.0-H as published;
+``kanana-2-30b-a3b-instruct``, DeepSeek-V3's block as published);
 ``get_arch`` resolves both, and the tests that walk ``ARCH_IDS`` against
 the JAX registry never meet them.  ``SHAPES`` is the dry run's table of input shapes
 and ``input_specs`` builds the ``meta`` stand-ins each (arch x shape)
@@ -22,6 +23,7 @@ from repro_torch.configs import (
     deepseek_coder_33b,
     granite_3_8b,
     granite_4_0_h_small,
+    kanana_2_30b_a3b_instruct,
     kimi_k2_1t_a32b,
     mamba2_370m,
     olmoe_1b_7b,
@@ -49,7 +51,8 @@ _MODULES = (
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 ARCH_IDS = tuple(REGISTRY)
-PORT_ONLY = {m.ARCH_ID: m for m in (zamba2_7b_instruct, granite_4_0_h_small)}
+PORT_ONLY = {m.ARCH_ID: m for m in (zamba2_7b_instruct, granite_4_0_h_small,
+                                    kanana_2_30b_a3b_instruct)}
 
 
 def get_arch(arch_id: str, smoke: bool = False) -> ArchConfig:

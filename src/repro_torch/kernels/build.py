@@ -268,7 +268,7 @@ FLASH_ATTENTION = CudaKernel(
     name="flash_attention",
     source="flash_attention.cu",
     symbol="flash_attention",
-    argtypes=(_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    argtypes=(_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     replaces="src/repro/kernels/flash_attention.py:29 _flash_kernel",
     flags=(),
     headers=(),

@@ -1,6 +1,7 @@
 // Online-softmax (flash) attention with grouped KV heads:
 // q [B, Sq, Hq, D], k, v [B, Skv, Hkv, D] -> out [B, Sq, Hq, D], in bf16
-// or f32, causal (kv index <= q index) or not.
+// or f32, causal (kv index <= q index) or not; and MLA's split head dims,
+// q, k at 192 and v, out at 128.
 //
 // Replaces the TPU kernel _flash_kernel
 // (src/repro/kernels/flash_attention.py) behind flash_attention_pallas;
@@ -59,6 +60,14 @@
 // layout of seven 16-column slabs under the 32-byte swizzle with n112
 // wgmmas, would save that 14% at the cost of a second swizzle layout.)
 // The f32 kernel takes D = 112 as it is (seven 16-lane column groups).
+//
+// MLA's expanded prefill (DeepSeek-V3: Q and K at 192 = 128 + 64 rope
+// dims, V and O at 128) runs its own instantiation,
+// tc::flash_mla_kernel<192, 128>, of the same body: Q and K tiles of
+// three 64-column boxes, V tiles and the accumulator of two (an m64n128
+// P·V as at D 128), four K/V stages (209 KB of shared memory); V is read
+// as it lies, with no padded copy.  The f32 kernel takes it as
+// simt::flash_kernel<192, 128, float>.
 //
 // f32 (simt::flash_kernel): the two products in f32 on the CUDA cores
 // (the card check holds f32 to one f32 rounding, which TF32 cannot
@@ -136,13 +145,14 @@ __host__ __device__ constexpr int k_words() {
   return kBK * qk_stride<D>() > kBQ * kPS ? kBK * qk_stride<D>() : kBQ * kPS;
 }
 
-template <int D>
+template <int D, int DV>
 __host__ __device__ constexpr size_t smem_bytes() {
   return (static_cast<size_t>(kBQ) * qk_stride<D>() + k_words<D>() +
-          static_cast<size_t>(kBK) * D) * sizeof(float);
+          static_cast<size_t>(kBK) * DV) * sizeof(float);
 }
 
-template <int D, typename T>
+// D: Q's and K's head dim; DV: V's and O's.
+template <int D, int DV, typename T>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
@@ -150,11 +160,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     float scale) {
   if (skv_dev != nullptr) skv = *skv_dev;
   constexpr int kLd = qk_stride<D>();
-  constexpr int kCols = D / 16;  // output columns per thread
+  constexpr int kCols = DV / 16;  // output columns per thread
   extern __shared__ float4 smem4[];  // 16-byte aligned for float4 access
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ, kLd] scaled q
   float* ks = qs + kBQ * kLd;     // [kBK, kLd] key tile, then [kBQ, kPS] p
-  float* vs = ks + k_words<D>();  // [kBK, D] value tile
+  float* vs = ks + k_words<D>();  // [kBK, DV] value tile
   float* ps = ks;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // late (heavy) tiles first
@@ -186,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's p and v are no longer read
     stage_tile<D>(k, b, skv, kv_rows, hkv, hk, k0, 1.f, ks, kLd);
-    stage_tile<D>(v, b, skv, kv_rows, hkv, hk, k0, 1.f, vs, D);
+    stage_tile<DV>(v, b, skv, kv_rows, hkv, hk, k0, 1.f, vs, DV);
     __syncthreads();
 
     // scores: s[i][j] = q[ty + 16 i] . k[tx + 16 j]
@@ -261,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
         pa[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kPS + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vs + (j + jj) * D + tx;
+        const float* vrow = vs + (j + jj) * DV + tx;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const float vv = vrow[16 * c];
@@ -283,23 +293,23 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const int qi = q0 + ty + 16 * i;
     if (qi >= sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * D + tx;
+    T* o = out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV + tx;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(o + 16 * c, acc[i][c] * inv);
   }
 }
 
-template <int D, typename T>
+template <int D, int DV, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, const int* skv_dev, int kv_rows, int hq, int hkv,
            bool causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DV, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, skv, skv_dev,
       kv_rows, hq, hkv, causal, scale);
@@ -315,23 +325,32 @@ constexpr int kBK = 64;          // keys per tile
 constexpr int kConsumers = 256;  // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 
-template <int D>
+// D: the tiles' head dim of Q and K; DV: of V and the accumulator (D
+// but in MLA's 192 / 128 instantiation).
+template <int D, int DV = D>
 struct Shape {
-  // depth of the K/V ring: four stages, two at D 256 (four would need
-  // 257 KB of shared memory, over the 227 KB a block may use)
-  static constexpr int kStages = D > 128 ? 2 : 4;
   static constexpr int kCol = D < 64 ? D : 64;  // columns of a swizzled row
   static constexpr int kRow = 2 * kCol;  // its bytes: 32, 64 or 128, the
                                          // swizzle span
-  static constexpr int kChunks = D / kCol;
+  static constexpr int kChunks = D / kCol;    // of a Q or K row
+  static constexpr int kVChunks = DV / kCol;  // of a V row
   static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kTileBytes = kBK * D * 2;    // one K tile
+  static constexpr int kVTileBytes = kBK * DV * 2;  // one V tile
   // the wgmma descriptor's layout type of that swizzle
   static constexpr int kLayout = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
   // 1024: the alignment slack of the swizzled tiles; then the mbarriers
-  static constexpr size_t kSmem =
-      1024 + kQBytes + 2 * kStages * kTileBytes + (1 + 2 * kStages) * 8;
+  static constexpr size_t smem(int stages) {
+    return 1024 + kQBytes + static_cast<size_t>(stages) * (kTileBytes + kVTileBytes) +
+           (1 + 2 * stages) * 8;
+  }
+  // depth of the K/V ring: four stages where they fit, else two (at D 256
+  // four would need 257 KB of shared memory, over the 227 KB a block may
+  // use; at 192 / 128 four take 209 KB)
+  static constexpr int kStages = smem(4) <= 232448 ? 4 : 2;
+  static constexpr size_t kSmem = smem(kStages);
   static_assert(kSmem <= 232448, "a block may use 227 KB of shared memory");
+  static_assert(DV % kCol == 0, "V's rows are whole swizzled rows");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -617,23 +636,25 @@ constexpr int tile_dim() { return DS == 112 ? 128 : DS == 224 ? 256 : DS; }
 // warpgroup: element i sits at row 16 w + l / 4 + 8 ((i / 2) % 2) and
 // column 8 (i / 4) + 2 (l % 4) + i % 2.  The A fragment of a k16 step in
 // registers has the same order over that step's 16 columns.
-// D is the tile's head dim, DS <= D the tensors' own (their row stride);
-// TMA zero-fills the tiles' columns DS..D-1.
-template <int D, int DS>
-__global__ void __launch_bounds__(kThreads, 1) flash_kernel(
-    const __grid_constant__ CUtensorMap tm_q,
-    const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-    int sq, int skv, const int* __restrict__ skv_dev, int hq, int hkv,
-    bool causal, float scale) {
+// D is Q's and K's tile head dim, DS <= D the tensors' own (their row
+// stride); TMA zero-fills the tiles' columns DS..D-1.  DV and DVS <= DV
+// are V's and O's (D and DS but in MLA's instantiation).  The body of
+// both kernels below.
+template <int D, int DS, int DV, int DVS>
+__device__ __forceinline__ void flash_body(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    __nv_bfloat16* __restrict__ out, int sq, int skv,
+    const int* __restrict__ skv_dev, int hq, int hkv, bool causal,
+    float scale) {
   if (skv_dev != nullptr) skv = *skv_dev;
-  using S = Shape<D>;
+  using S = Shape<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle repeats every 1024 bytes of shared address: align to it
   uint8_t* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = qs + S::kQBytes;              // [S::kStages] K tiles
   uint8_t* vs = ks + S::kStages * S::kTileBytes;  // [S::kStages] V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S::kStages * S::kTileBytes);
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(vs + S::kStages * S::kVTileBytes);
   uint64_t* full = q_full + 1;     // [S::kStages] the stage has landed
   uint64_t* empty = full + S::kStages;  // [S::kStages] the stage is read
 
@@ -661,16 +682,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
       const int hk = h / (hq / hkv);
       mbar_expect_tx(q_full, S::kQBytes);
       for (int c = 0; c < S::kChunks; ++c)
-        tma_load(qs + c * kBQ * S::kRow, &tm_q, q_full, c * S::kCol, h, q0,
+        tma_load(qs + c * kBQ * S::kRow, tm_q, q_full, c * S::kCol, h, q0,
                  b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S::kStages;
         mbar_wait(&empty[s], ((t / S::kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * S::kTileBytes);
-        for (int c = 0; c < S::kChunks; ++c) {
-          const int off = s * S::kTileBytes + c * kBK * S::kRow;
-          tma_load(ks + off, &tm_k, &full[s], c * S::kCol, hk, t * kBK, b);
-          tma_load(vs + off, &tm_v, &full[s], c * S::kCol, hk, t * kBK, b);
+        mbar_expect_tx(&full[s], S::kTileBytes + S::kVTileBytes);
+        constexpr int kMost = S::kChunks > S::kVChunks ? S::kChunks : S::kVChunks;
+        for (int c = 0; c < kMost; ++c) {
+          if (c < S::kChunks)
+            tma_load(ks + s * S::kTileBytes + c * kBK * S::kRow, tm_k,
+                     &full[s], c * S::kCol, hk, t * kBK, b);
+          if (c < S::kVChunks)
+            tma_load(vs + s * S::kVTileBytes + c * kBK * S::kRow, tm_v,
+                     &full[s], c * S::kCol, hk, t * kBK, b);
         }
       }
     }
@@ -687,9 +712,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
   const uint32_t k_base = smem_addr(ks);
   const uint32_t v_base = smem_addr(vs);
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
@@ -760,7 +785,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
         m[r] = m_new;
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
       // P = P_hi + P_lo in bf16, as A fragments: register 4 kk + r of a
       // k16 step kk holds p[8 kk + 2 r], p[8 kk + 2 r + 1]
@@ -780,7 +805,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t vd =
-            desc(v_base + s * S::kTileBytes + kk * 16 * S::kRow,
+            desc(v_base + s * S::kVTileBytes + kk * 16 * S::kRow,
                  kBK * S::kRow, 8 * S::kRow, S::kLayout);
         wgmma_rs(o, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2],
                  p_hi[4 * kk + 3], vd);
@@ -800,13 +825,37 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* o_row =
-        out + ((static_cast<size_t>(b) * sq + row) * hq + h) * DS + col;
+        out + ((static_cast<size_t>(b) * sq + row) * hq + h) * DVS + col;
 #pragma unroll
-    for (int j = 0; j < DS / 8; ++j)
+    for (int j = 0; j < DVS / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
                                 o[4 * j + 2 * r + 1] * inv);
   }
+}
+
+// One head dim for Q, K and V: D the tiles', DS the tensors'.
+template <int D, int DS>
+__global__ void __launch_bounds__(kThreads, 1) flash_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    int sq, int skv, const int* __restrict__ skv_dev, int hq, int hkv,
+    bool causal, float scale) {
+  flash_body<D, DS, D, DS>(&tm_q, &tm_k, &tm_v, out, sq, skv, skv_dev, hq,
+                           hkv, causal, scale);
+}
+
+// MLA's expanded prefill: Q and K at DQK, V and O at DV (192 and 128).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, 1) flash_mla_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    int sq, int skv, const int* __restrict__ skv_dev, int hq, int hkv,
+    bool causal, float scale) {
+  flash_body<DQK, DQK, DV, DV>(&tm_q, &tm_k, &tm_v, out, sq, skv, skv_dev, hq,
+                               hkv, causal, scale);
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point
@@ -862,32 +911,45 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// DS: the tensors' head dim; the kernel runs in tiles of tile_dim<DS>().
-// K and V are the leading skv of kv_rows rows a batch entry.
-template <int DS>
+// DS: Q's and K's head dim, DVS V's and O's (DS, or MLA's 128 beside 192);
+// the kernel runs in tiles of tile_dim<DS>() (and DVS for V).  K and V are
+// the leading skv of kv_rows rows a batch entry.
+template <int DS, int DVS = DS>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, const int* skv_dev, int kv_rows, int hq, int hkv,
            bool causal, float scale, cudaStream_t stream) {
   constexpr int D = tile_dim<DS>();
+  constexpr int DV = DVS == DS ? D : DVS;
   if (skv == 0)  // no key: acc / max(l, 1e-30) is 0
     return static_cast<int>(cudaMemsetAsync(
-        out, 0, 2ull * b * sq * hq * DS, stream));
+        out, 0, 2ull * b * sq * hq * DVS, stream));
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
   if (!encode<D, DS>(fn, &tq, q, b, sq, hq, kBQ) ||
       !encode<D, DS>(fn, &tk, k, b, kv_rows, hkv, kBK) ||
-      !encode<D, DS>(fn, &tv, v, b, kv_rows, hkv, kBK))
+      !encode<DV, DVS>(fn, &tv, v, b, kv_rows, hkv, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Shape<D>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = Shape<D, DV>::kSmem;
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_kernel<D, DS><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, skv_dev, hq, hkv,
-      causal, scale);
+  cudaError_t err;
+  if constexpr (DVS == DS) {
+    err = cudaFuncSetAttribute(flash_kernel<D, DS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_kernel<D, DS><<<grid, kThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, skv_dev, hq,
+        hkv, causal, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_mla_kernel<D, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_mla_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, skv_dev, hq,
+        hkv, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -918,7 +980,9 @@ int by_head_dim(int d, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  d in {16, 32, 64, 112, 128, 224}; hq a
+// dtype: 0 float32, 1 bfloat16.  d == dv in {16, 32, 64, 112, 128, 224},
+// or d 192 and dv 128 (q and k at d, v and out at dv: MLA's expanded
+// prefill, tc::flash_mla_kernel<192, 128>); hq a
 // multiple of hkv; sq >= 1; q, k, v 16-byte aligned; K and V the leading
 // skv of kv_rows >= skv rows a batch entry.  With `skv_dev` non-null the
 // kernel reads skv from that device int instead (1 <= *skv_dev <= kv_rows;
@@ -929,13 +993,24 @@ int by_head_dim(int d, F&& f) {
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int b, int sq, int skv,
                                const int* skv_dev, int kv_rows, int hq,
-                               int hkv, int d, int causal, int dtype,
+                               int hkv, int d, int dv, int causal, int dtype,
                                float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
+  if (d != dv) {
+    if (d != 192 || dv != 128) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == 0)
+      return simt::launch<192, 128, float>(q, k, v, out, b, sq, skv, skv_dev,
+                                           kv_rows, hq, hkv, c, scale, st);
+    if (dtype == 1)
+      return tc::launch<192, 128>(q, k, v, out, b, sq, skv, skv_dev, kv_rows,
+                                  hq, hkv, c, scale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0)
     return by_head_dim(d, [&](auto dim) {
-      return simt::launch<decltype(dim)::value, float>(
+      constexpr int kD = decltype(dim)::value;
+      return simt::launch<kD, kD, float>(
           q, k, v, out, b, sq, skv, skv_dev, kv_rows, hq, hkv, c, scale, st);
     });
   if (dtype == 1)

@@ -20,7 +20,10 @@ TPU kernel's f32 probabilities do; f32 runs both products in f32 on the
 CUDA cores.  Head dim 112 runs the bf16 kernel's D = 128 tiles on tensor
 maps whose inner extent is 112 (TMA reads the missing columns as zeros; no
 padded copy); head dim 224 (Zamba2's shared blocks) the D = 256 tiles on
-tensor maps of inner extent 224, two stages of K and V.  K and V may be the
+tensor maps of inner extent 224, two stages of K and V.  MLA's expanded
+prefill (Q and K at 192, V and O at 128, ``SPLIT_DIMS``) runs its own
+instantiation: Q and K tiles of three 64-column boxes, V tiles and the
+accumulator of two, four K/V stages; no padded copy of V.  K and V may be the
 leading rows of a larger cache (a decode step's attention over the
 filled positions).  The plain version is the LM's own ``layers.chunked_attention``
 on the grouped view.  In bf16 that rounds the probabilities to bf16 before
@@ -38,6 +41,9 @@ from repro_torch.models import layers
 
 # head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 112, 128, 224)
+# (Q and K's head dim, V's and O's) pairs it is instantiated for besides:
+# MLA's expanded prefill (DeepSeek-V3: 128 + 64 rope dims, v 128)
+SPLIT_DIMS = ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -52,13 +58,14 @@ def flash_attention_plain(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``layers.chunked_attention`` on the grouped
-    view.  q [B, Sq, Hq, d], k/v [B, Skv, Hkv, d] -> [B, Sq, Hq, d]."""
-    b, sq, hq, d = q.shape
+    view.  q [B, Sq, Hq, d], k [B, Skv, Hkv, d], v [B, Skv, Hkv, dv] ->
+    [B, Sq, Hq, dv]."""
+    b, sq, hq, _ = q.shape
     out = layers.chunked_attention(
         layers._merge_gqa(q, k.shape[2]), k, v, causal=causal,
         kv_chunk=kv_chunk, bf16_scores=bf16_scores, scale=scale,
     )
-    return out.reshape(b, sq, hq, d)
+    return out.reshape(b, sq, hq, v.shape[-1])
 
 
 def _kv_rows(t: torch.Tensor) -> int:
@@ -93,15 +100,17 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
             f"d], got {[tuple(t.shape) for t in tensors]}"
         )
     b, _, hq, d = q.shape
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+    dv = v.shape[-1]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d
             or k.shape[2] == 0 or hq % k.shape[2]):
         raise ValueError(
-            f"flash_attention: q {tuple(q.shape)} needs k and v "
-            f"[{b}, Skv, Hkv, {d}] with Hkv dividing {hq}, got "
+            f"flash_attention: q {tuple(q.shape)} needs k [{b}, Skv, Hkv, {d}] "
+            f"and v [{b}, Skv, Hkv, dv] with Hkv dividing {hq}, got "
             f"{tuple(k.shape)} and {tuple(v.shape)}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in SPLIT_DIMS and (d != dv or d not in HEAD_DIMS):
+        raise ValueError(f"flash_attention: head dims {d} / {dv} not in {HEAD_DIMS} "
+                         f"(q, k and v alike) nor in {SPLIT_DIMS} (q and k, v)")
     rows = _kv_rows(k)
     if (not q.is_contiguous() or not rows or _kv_rows(v) != rows
             or any(t.data_ptr() % 16 for t in tensors)):
@@ -115,9 +124,10 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     scale: Optional[float] = None, kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attention of q [B, Sq, Hq, d] over k, v [B, Skv, Hkv, d] ->
-    [B, Sq, Hq, d] in q's dtype (float32 or bfloat16), scores scaled by
-    ``scale`` (default 1/sqrt(d)).  k and v may be the leading Skv rows of
+    """Attention of q [B, Sq, Hq, d] over k [B, Skv, Hkv, d] and v [B, Skv,
+    Hkv, dv] -> [B, Sq, Hq, dv] in q's dtype (float32 or bfloat16), scores
+    scaled by ``scale`` (default 1/sqrt(d)); dv == d in ``HEAD_DIMS``, or
+    (d, dv) in ``SPLIT_DIMS``.  k and v may be the leading Skv rows of
     a contiguous [B, R, Hkv, d] cache (``cache[:, :n]``): the kernel reads
     them where they lie (the bf16 kernel's last key tile reads rows past
     Skv, masked: they must hold finite values, as a zeroed cache does).
@@ -149,7 +159,7 @@ def flash_attention(
         raise ValueError("flash_attention: kv_len must be one int32 on q's device")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, hq, v.shape[-1]))
     if out.numel() == 0:
         return out
     kern = build.FLASH_ATTENTION
@@ -158,7 +168,8 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         kern.launches += 1
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                sq, skv, build.ptr(kv_len), kv_rows, hq, hkv, d, int(bool(causal)),
+                sq, skv, build.ptr(kv_len), kv_rows, hq, hkv, d, v.shape[-1],
+                int(bool(causal)),
                 _DTYPES[q.dtype], 1.0 / math.sqrt(d) if scale is None else float(scale),
                 stream)
     build.check_launch(kern, rc)

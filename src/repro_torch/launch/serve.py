@@ -13,21 +13,27 @@ and so are the prompts unless the caller passes its own (``serve(...,
 prompts=, model=)``: a benchmark's token ids and loaded weights); the audio
 family's frame embeddings are zeros in the model's dtype, as in the JAX
 package.  On the card every attention of a prefill (and whisper's
-cross-attention of each decode step, and the published models' decode
-attention over their caches) runs the flash kernel; each decode step is
-one token per request.  The published models' decode step
-(``T.decode_step`` at a device position; Zamba2 and Granite 4.0-H,
-``T.published``) runs on the card as one CUDA graph (``models/zamba2.py``'s
+cross-attention of each decode step, and Zamba2's and Granite 4.0-H's
+decode attention over their KV caches) runs the flash kernel; each decode
+step is one token per request.  The published models' decode step
+(``T.decode_step`` at a device position; Zamba2, Granite 4.0-H and
+DeepSeek-V3, ``T.published``) runs on the card as one CUDA graph (``models/zamba2.py``'s
 ``DecodeGraph``) over a cache the model keeps with it, captured at the
 first batch of a shape and replaced by a batch of another (span
 ``lm.decode_graph``: the capture, or the next batch's reset of the cache;
 timed in neither phase).
 
+DeepSeek-V3 (``models/deepseek_v3.py``) prefills a row at a time and
+attends in decode by the absorbed form over its latent cache (plain
+PyTorch in the graph); ``prefill_at`` keeps the prefill's logits at a few
+positions, as its cell does: every position's of a 4 x 32,704 batch
+would be 33.6 GB.
+
 Traced (``repro_torch.obs`` on): spans ``lm.prefill`` (batch, prompt
 length; it ends at the first token's copy to the host) and
 ``lm.decode_step`` (step; it ends at the step's token copy), counters
 ``lm.tokens_prefilled`` and ``lm.tokens_decoded``.  Under the decode graph
-the spans inside a step (``lm.shared_block``, ``lm.moe``) are not
+the spans inside a step (``lm.shared_block``, ``lm.moe``, ``lm.mla``) are not
 recorded; a model whose module has ``observe_decode`` (Granite 4.0-H's
 MoE counters) reads what the step left in its cache after the step's
 token copy.
@@ -60,13 +66,17 @@ class ServeResult:
     prefill_s: float
     decode_s: float
     generations: np.ndarray  # [B, tokens] greedy tokens
-    prefill_logits: torch.Tensor  # [B, S, V_padded] at every prompt position
+    # [B, S, V_padded] at every prompt position, or [B, len(prefill_at),
+    # V_padded] at the positions ``serve`` was asked to keep
+    prefill_logits: torch.Tensor
     last_logits: torch.Tensor  # [B, 1, V_padded] of the last step
     # [len(keep), tokens - 1, V_padded]: each decode step's logits of the
     # rows ``serve`` was asked to keep (None where none were)
     step_logits: Optional[torch.Tensor] = None
     # those rows of every tensor of the cache after the last step (each
-    # cache tensor holds the batch on its axis 1), in ``keep``'s order
+    # cache tensor holds the batch on its axis 1), in ``keep``'s order; a
+    # model module with ``kept_cache`` keeps what it says (DeepSeek-V3:
+    # the latent rows at ``prefill_at`` and the decode steps' positions)
     kept_cache: Optional[dict] = None
     # what the model tapped of those rows, by name, each [len(keep),
     # layers, ...] (Granite 4.0-H: 'moe', each MoE block's output on the
@@ -91,6 +101,7 @@ def serve(
     frames: Optional[torch.Tensor] = None,
     prompts: Optional[torch.Tensor] = None,
     keep: Optional[Sequence[int]] = None,
+    prefill_at: Optional[Sequence[int]] = None,
 ) -> ServeResult:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then ``tokens -
     1`` greedy decode steps, under ``torch.inference_mode()``.  ``prompts``
@@ -100,7 +111,10 @@ def serve(
     default to zeros.  ``keep``: rows whose every decode step's logits and
     final cache are kept (``step_logits``, ``kept_cache``), and what the
     model taps of them in the prefill and the decode steps
-    (``kept_taps``)."""
+    (``kept_taps``).  ``prefill_at``: the prompt positions at which the
+    prefill's logits are kept (``prefill_logits`` [B, len(prefill_at),
+    V_padded]; the head runs at those and the last position only); by
+    default every position's."""
     dev = default_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.inference_mode():
@@ -127,14 +141,16 @@ def serve(
             with obs.span("lm.decode_graph"):
                 graph = lib.decode_graph(model, batch, max_len)
                 cache = graph.cache
+        at = None if prefill_at is None else torch.as_tensor(
+            list(prefill_at) + [prompt_len - 1], dtype=torch.long, device=dev)
         taps = {}
         if rows is not None:
-            model.__dict__["_taps"] = (rows, taps)
+            model.__dict__["_taps"] = (rows, taps, None if at is None else at[:-1])
         t0 = time.perf_counter()
         try:
             with obs.span("lm.prefill", (batch, prompt_len) if obs.ON else ()):
                 cache, logits = T.prefill(model, prompts, max_len=max_len, frames=frames,
-                                          cache=cache)
+                                          cache=cache, at=at)
                 tok = torch.argmax(logits[:, -1:, : cfg.vocab_size], dim=-1)
                 out = [tok.cpu().numpy()]
         finally:
@@ -142,7 +158,7 @@ def serve(
         prefill_taps = set(taps)
         obs.count("lm.tokens_prefilled", batch * prompt_len)
         t_prefill = time.perf_counter() - t0
-        prefill_logits = logits
+        prefill_logits = logits if at is None else logits[:, :-1]
         t0 = time.perf_counter()
         for step in range(tokens - 1):
             with obs.span("lm.decode_step", (step,) if obs.ON else ()):
@@ -161,8 +177,15 @@ def serve(
                     observe(model, cache)
             obs.count("lm.tokens_decoded", batch)
         t_decode = time.perf_counter() - t0
-        kept_cache = None if rows is None else {
-            k: v.index_select(1, rows) for k, v in cache.items() if torch.is_tensor(v)}
+        keep_of = getattr(lib, "kept_cache", None)
+        if rows is None:
+            kept_cache = None
+        elif keep_of is not None:
+            kept_cache = keep_of(cache, rows, None if at is None else torch.cat([
+                at[:-1], torch.arange(prompt_len, prompt_len + tokens - 1, device=dev)]))
+        else:
+            kept_cache = {k: v.index_select(1, rows) for k, v in cache.items()
+                          if torch.is_tensor(v)}
     step_logits = torch.stack(kept, dim=1) if kept else None
     # [len(keep), layers, ...]: the prefill's taps [layers][len(keep), ...];
     # the decode steps' [steps][layers, len(keep), ...], each row's steps

@@ -18,6 +18,7 @@ from typing import Optional
 class ArchConfig:
     name: str
     family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'audio' | 'vlm' | 'zamba2' | 'granite4h'
+    # | 'deepseek_v3'
     n_layers: int
     d_model: int
     n_heads: int
@@ -296,4 +297,84 @@ class GraniteMoeHybridConfig(ArchConfig):
         """Parameters a token touches: every expert but its ``top_k`` of
         ``n_experts`` left out, the shared expert and the router kept."""
         idle = self.n_layers * (self.n_experts - self.top_k) * self._expert_params()
+        return self.param_count() - idle
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekV3Config(ArchConfig):
+    """DeepSeek-V3's block as published (``transformers``'
+    ``DeepseekV3ForCausalLM``, model type ``deepseek_v3``), without q_lora,
+    as Kanana-2-30B-A3B-Instruct runs it.
+
+    ``n_layers`` decoder layers, each latent attention (MLA) then a
+    feed-forward block.  MLA: q = x W_q, ``n_heads`` heads of
+    ``qk_nope_dim`` + ``qk_rope_dim``; [c, k_pe] = x W_kv_a, c normalised
+    by its own RMSNorm (``kv_lora_rank`` wide), k_pe one rope head shared
+    by every head; per head k_nope and v = c W_kv_b (``qk_nope_dim`` and
+    ``v_head_dim``); RoPE (theta ``rope_theta``) on the ``qk_rope_dim``
+    dims of q and k_pe, pairs (2i, 2i + 1) rotated; scores scaled by
+    (qk_nope_dim + qk_rope_dim)^-1/2; out = o W_o.  The feed-forward
+    block is a SwiGLU of width ``d_ff`` in the first ``first_k_dense``
+    layers, and after them a MoE of ``n_experts`` SwiGLU experts of width
+    ``moe_d_ff``: sigmoid scores of the f32 router logits, the top
+    ``top_k`` of scores + ``e_score_correction_bias``, the gates the
+    unbiased scores of those, normalised over the k and times
+    ``routed_scaling``; plus ``n_shared_experts`` shared experts as one
+    SwiGLU of width ``n_shared_experts`` x ``moe_d_ff``.  Untied
+    embeddings.  The family is 'deepseek_v3': the model code dispatches on
+    it (``models/deepseek_v3.py``).
+    """
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense: int = 1
+    moe_d_ff: int = 768
+    n_shared_experts: int = 2
+    routed_scaling: float = 2.448
+    norm_eps: float = 1e-6
+    max_position: int = 32768
+    tie_embeddings: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "deepseek_v3":
+            raise ValueError(f"a DeepseekV3Config is of family 'deepseek_v3', not "
+                             f"{self.family!r}")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a position of a layer's latent cache holds: c and k_pe."""
+        return self.kv_lora_rank + self.qk_rope_dim
+
+    @property
+    def n_moe(self) -> int:
+        return self.n_layers - self.first_k_dense
+
+    @property
+    def shared_d_ff(self) -> int:
+        return self.n_shared_experts * self.moe_d_ff
+
+    def _attn_params(self) -> int:
+        D, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        return (D * H * self.qk_head_dim + D * self.latent_dim + r
+                + r * H * (self.qk_nope_dim + self.v_head_dim) + H * self.v_head_dim * D)
+
+    def param_count(self) -> int:
+        """Parameters as published: the embedding and the head (untied),
+        every layer's two norms and MLA, the dense SwiGLUs, each MoE
+        layer's router, bias, experts and shared experts, the final norm."""
+        D, E = self.d_model, self.n_experts
+        moe = D * E + E + E * 3 * D * self.moe_d_ff + 3 * D * self.shared_d_ff
+        return (2 * self.vocab_size * D + self.n_layers * (2 * D + self._attn_params())
+                + self.first_k_dense * 3 * D * self.d_ff + self.n_moe * moe + D)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: every routed expert but its ``top_k``
+        left out."""
+        idle = self.n_moe * (self.n_experts - self.top_k) * 3 * self.d_model * self.moe_d_ff
         return self.param_count() - idle

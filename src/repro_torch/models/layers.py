@@ -301,7 +301,8 @@ def chunked_attention(
 ) -> torch.Tensor:
     """Online-softmax (flash) attention by a loop over KV chunks.
 
-    q: [B, Sq, Hkv, G, d]; k/v: [B, Skv, Hkv, d].  Returns [B, Sq, Hkv, G, d].
+    q: [B, Sq, Hkv, G, d]; k: [B, Skv, Hkv, d]; v: [B, Skv, Hkv, dv] (dv may
+    differ from d: MLA's 192 / 128).  Returns [B, Sq, Hkv, G, dv].
     ``q_offset`` is the absolute position of q[0] (for causal masking
     during chunked prefill / decode).  Scores are scaled by ``scale``
     (default 1/sqrt(d)), rounded to f32.  Memory: O(Sq * kv_chunk) per
@@ -324,7 +325,7 @@ def chunked_attention(
     qs = q.to(sd)
     m = torch.full((B, Sq, Hkv, G), -math.inf, dtype=ct, device=dev)
     l = torch.zeros((B, Sq, Hkv, G), dtype=ct, device=dev)
-    acc = torch.zeros((B, Sq, Hkv, G, d), dtype=ct, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, v.shape[-1]), dtype=ct, device=dev)
     for c in range(n_chunks):
         kci = k[:, c * kv_chunk : (c + 1) * kv_chunk]
         vci = v[:, c * kv_chunk : (c + 1) * kv_chunk]

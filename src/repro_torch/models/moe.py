@@ -22,7 +22,11 @@ Port of the JAX package's ``models/moe.py``:
   all-reduce, JAX's ``psum``).
 * ``moe_dropless`` — the dropless path of the published Granite 4.0-H
   (``granite-4.0-h-small``, family 'granite4h'; ``models/granite4h.py``),
-  as ``GraniteMoeHybridMoE`` computes it: every assignment computed.  Its
+  as ``GraniteMoeHybridMoE`` computes it: every assignment computed.
+  DeepSeek-V3's MoE layers (``kanana-2-30b-a3b-instruct``, family
+  'deepseek_v3'; ``models/deepseek_v3.py``) route by ``route_sigmoid``,
+  then take ``experts_grouped`` (each expert over its own rows) at
+  prefill and ``experts_in_slots``' static form at decode.  Its
   experts keep the published layout (``w_in`` [E, 2 F, D], gate rows
   first, and ``w_out`` [E, D, F]).  Each expert gets as many slots as its
   largest load needs and the SwiGLU runs batched over the experts,
@@ -93,6 +97,24 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int):
     logits = x.to(ct) @ router.to(ct)  # [T, E]
     vals, order = torch.sort(logits, dim=-1, descending=True, stable=True)
     return torch.softmax(vals[:, :top_k], dim=-1), order[:, :top_k], logits
+
+
+def route_sigmoid(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor, top_k: int,
+                  scaling: float):
+    """DeepSeek-V3's routing of x [T, D] by ``router`` [D, E] (one group):
+    (gates [T, k], ids [T, k] int64, scores [T, E]).  The scores are the
+    sigmoid of the f32 logits (float64 for a float64 model); the k experts
+    are the top k of scores + ``bias`` (``e_score_correction_bias``, [E]),
+    the lower expert id first on equal values; the gates are those
+    experts' unbiased scores over their sum (+ 1e-20), times ``scaling``
+    (``routed_scaling_factor``), in f32 (as ``DeepseekV3TopkRouter``)."""
+    ct = _acc(router.dtype)
+    scores = torch.sigmoid(x.to(ct) @ router.to(ct))  # [T, E]
+    _, order = torch.sort(scores + bias.to(ct), dim=-1, descending=True, stable=True)
+    ids = order[:, :top_k]
+    gates = scores.gather(1, ids)
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-20) * scaling
+    return gates, ids, scores
 
 
 def router_topk(x: torch.Tensor, router: torch.Tensor, top_k: int):
@@ -313,6 +335,47 @@ def experts_in_slots(x: torch.Tensor, params: dict, probs: torch.Tensor, ids: to
     y_slots = y_e[dest.clamp(max=n - 1)].mul_(gates[:, None])
     del y_e
     return y_slots.reshape(T, k, D).sum(dim=1)
+
+
+def experts_grouped(x: torch.Tensor, params: dict, probs: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """``experts_in_slots``' SwiGLU experts with no slot left empty: the
+    assignments sorted by expert (stable: flat (token, slot) order within
+    one), each expert's two products over its own rows, each output times
+    its gate in x's dtype, a token's k summed in slot order.  Its work
+    follows the assignments, where the slots' follows the largest load:
+    under a skewed router (one expert taking several times its share) the
+    slots are mostly padding.  In bf16 the two products are grouped ones
+    over the experts' row offsets (``torch._grouped_mm``, two launches, no
+    host read); in another dtype a loop over the experts, the loads read on
+    the host (its plain form)."""
+    T, D = x.shape
+    E, k = params["w_in"].shape[0], ids.shape[1]
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    rows = x[order // k]  # [T k, D], by expert
+    loads = expert_loads(ids, E)
+    if x.dtype == torch.bfloat16:
+        offs = torch.cumsum(loads, dim=0).to(torch.int32)
+        gate, up = torch._grouped_mm(rows, params["w_in"].transpose(1, 2),
+                                     offs=offs).chunk(2, dim=-1)
+        y = torch._grouped_mm(_silu_glu(gate, up), params["w_out"].transpose(1, 2),
+                              offs=offs)
+        del gate, up
+    else:
+        y = torch.empty_like(rows)
+        start = 0
+        for e, n in enumerate(loads.tolist()):
+            if n:
+                r = rows[start: start + n]
+                gate, up = (r @ params["w_in"][e].t()).chunk(2, dim=-1)
+                y[start: start + n] = _silu_glu(gate, up) @ params["w_out"][e].t()
+                start += n
+    del rows
+    y.mul_(probs.reshape(-1)[order].to(x.dtype)[:, None])
+    out = torch.empty_like(y)
+    out[order] = y
+    return out.reshape(T, k, D).sum(dim=1)
 
 
 def moe_dropless(x: torch.Tensor, params: dict, top_k: int,

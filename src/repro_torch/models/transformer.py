@@ -7,10 +7,12 @@ Port of the JAX package's ``models/transformer.py``:
   hybrid      : mamba2 backbone + ONE shared attention block applied every
                 ``attn_every`` layers with per-application LoRA on W_q
                 (zamba2, the JAX package's simplified variant)
-  published   : Zamba2 as published (``Zamba2Config``, zamba2-7b-instruct)
-                and Granite 4.0-H as published (``GraniteMoeHybridConfig``,
-                granite-4.0-h-small) run the layer loops, caches and
-                loaders of ``models/zamba2.py`` and ``models/granite4h.py``
+  published   : Zamba2 as published (``Zamba2Config``, zamba2-7b-instruct),
+                Granite 4.0-H as published (``GraniteMoeHybridConfig``,
+                granite-4.0-h-small) and DeepSeek-V3's block as published
+                (``DeepseekV3Config``, kanana-2-30b-a3b-instruct) run the
+                layer loops, caches and loaders of ``models/zamba2.py``,
+                ``models/granite4h.py`` and ``models/deepseek_v3.py``
                 (``published(cfg)``, the one place that dispatches to them)
   audio       : whisper-style encoder-decoder over frame embeddings (the
                 conv frontend is a stub: callers pass the frames)
@@ -48,6 +50,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.models import deepseek_v3 as deepseek_v3_lib
 from repro_torch.models import granite4h as granite4h_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -60,12 +63,14 @@ _F32_LEAVES = frozenset({"router", "A_log", "D_skip", "dt_bias"})
 # trees whose leaves carry the layer on their leading axis
 _STACKED = ("blocks", "enc_blocks", "cross_blocks")
 # the families laid out as a published checkpoint, by their model module
-_PUBLISHED = {"zamba2": zamba2_lib, "granite4h": granite4h_lib}
+_PUBLISHED = {"zamba2": zamba2_lib, "granite4h": granite4h_lib,
+              "deepseek_v3": deepseek_v3_lib}
 
 
 def published(cfg: ArchConfig):
     """The model module of a family laid out as a published checkpoint
-    (``models/zamba2.py``, ``models/granite4h.py``), or None.  Each has
+    (``models/zamba2.py``, ``models/granite4h.py``,
+    ``models/deepseek_v3.py``), or None.  Each has
     ``init_weights``, ``weights_from_hf``, ``layers``, ``init_cache``,
     ``decode_static`` and ``decode_graph``: the one place the model code
     dispatches to them."""
@@ -250,14 +255,16 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device) -> Transformer:
 
 
 def params_from_hf(state, cfg: ArchConfig, device=None) -> Transformer:
-    """A published checkpoint's state dict (``Zamba2ForCausalLM``'s or
-    ``GraniteMoeHybridForCausalLM``'s parameter names; any mapping, each
-    name read once) -> a ``Transformer`` of ``cfg`` (a ``Zamba2Config`` or
-    a ``GraniteMoeHybridConfig``) on ``device``, each weight copied in
-    ``cfg.dtype``."""
+    """A published checkpoint's state dict (``Zamba2ForCausalLM``'s,
+    ``GraniteMoeHybridForCausalLM``'s or ``DeepseekV3ForCausalLM``'s
+    parameter names; any mapping, each name read once) -> a
+    ``Transformer`` of ``cfg`` (a ``Zamba2Config``, a
+    ``GraniteMoeHybridConfig`` or a ``DeepseekV3Config``) on ``device``,
+    each weight copied in ``cfg.dtype``."""
     lib = published(cfg)
     if lib is None:
-        raise ValueError(f"{cfg.name} is not a published layout (Zamba2, Granite 4.0-H)")
+        raise ValueError(f"{cfg.name} is not a published layout (Zamba2, Granite 4.0-H, "
+                         f"DeepSeek-V3)")
     return Transformer(lib.weights_from_hf(state, cfg, device), cfg)
 
 
@@ -598,11 +605,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     raise ValueError(cfg.family)
 
 
-def decode_step(model: Transformer, cache: dict,
-                tokens: torch.Tensor) -> tuple[dict, torch.Tensor]:
+def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
+                at: Optional[torch.Tensor] = None) -> tuple[dict, torch.Tensor]:
     """One decode step: tokens [B, S] -> (updated cache, logits [B, S, V]).
 
-    S == 1 attends to the cache; S > 1 is the prefill of an empty cache.
+    S == 1 attends to the cache; S > 1 is the prefill of an empty cache,
+    whose logits are taken at the positions ``at`` only where given
+    ([B, len(at), V]).
     The cache's tensors are updated in place.  A published layout's
     decode step is its module's ``decode_static`` at position 'len', or at
     the device position 'pos' (int64 [1]) where the cache holds one: the
@@ -642,18 +651,21 @@ def decode_step(model: Transformer, cache: dict,
     else:
         raise ValueError(cfg.family)
     new_cache = dict(cache, len=idx + S)
-    return new_cache, _logits(model, h)
+    return new_cache, _logits(model, h if at is None else h.index_select(1, at))
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
             frames: Optional[torch.Tensor] = None,
-            cache: Optional[dict] = None) -> tuple[dict, torch.Tensor]:
+            cache: Optional[dict] = None,
+            at: Optional[torch.Tensor] = None) -> tuple[dict, torch.Tensor]:
     """Prefill a prompt and build decode caches: the decode path over the
     whole prompt at once (an S-token step), as the JAX package does; the
     audio family first encodes ``frames`` and caches each layer's cross
     K, V.  ``cache`` is an empty cache of ``init_cache``'s layout to fill
     (the dry run passes its sharded one); by default one is made.
-    Returns (cache, logits [B, S, V_padded] at every prompt position)."""
+    Returns (cache, logits [B, S, V_padded] at every prompt position, or
+    [B, len(at), V_padded] at the positions ``at`` (int64 on the tokens'
+    device) where given)."""
     B, _ = tokens.shape
     enc_len = frames.shape[1] if frames is not None else 0
     if cache is None:
@@ -666,7 +678,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, max_len: int,
             xk, xv = _cross_kv(model, enc, i)
             cache["xk"][i].copy_(xk)
             cache["xv"][i].copy_(xv)
-    return decode_step(model, cache, tokens)
+    return decode_step(model, cache, tokens, at=at)
 
 
 # --------------------------------------------------------------------------

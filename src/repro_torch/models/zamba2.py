@@ -274,26 +274,33 @@ class DecodeGraph:
     replay on the host instead of ~5,000 launches; the published models'
     (Zamba2's here, Granite 4.0-H's through ``models/granite4h.py``), whose
     caches hold per-layer conv and SSM states ('conv', 'S') and per
-    attention K and V ('k', 'v').
+    attention K and V ('k', 'v'), and DeepSeek-V3's
+    (``models/deepseek_v3.py``), whose cache holds each layer's latent
+    rows ('latent').
     Build it on an empty cache, before the prefill: the warm-up step it
-    runs writes the cache's last KV row (which no step of a batch of
-    ``max_len - 1`` positions reads) and the conv and SSM states, which it
-    zeroes again.  ``step(tok, idx)`` copies the tokens and the position
+    runs writes the cache's last KV or latent row (which no step of a
+    batch of ``max_len - 1`` positions reads) and the conv and SSM states,
+    which it zeroes again.  ``step(tok, idx)`` copies the tokens and the position
     in, replays, and returns the logits buffer [B, 1, V_padded] (valid
     until the next replay).  The spans and counters inside the step are
     not recorded while it replays; ``step`` counts the step's KV bytes and
-    SSM chunks itself.  ``decode_graph`` keeps the last one on the model."""
+    SSM chunks (or its MLA blocks and latent bytes) itself.
+    ``decode_graph`` keeps the last one on the model."""
 
     def __init__(self, model, cache: dict):
         from repro_torch.models import transformer as T
 
-        dev = cache["conv"].device
-        B, R = cache["k"].shape[1], cache["k"].shape[2]
+        rows = cache["latent"] if "latent" in cache else cache["k"]
+        dev = rows.device
+        B, R = rows.shape[1], rows.shape[2]
         self.tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
         self.pos = torch.full((1,), R - 1, dtype=torch.long, device=dev)
-        self.n_ssm = cache["S"].shape[0]
-        self.kv_bytes = 2 * cache["k"].shape[0] * B * cache["k"][0, 0, 0].numel() * \
-            cache["k"].element_size()
+        # what a step adds to the counters: the KV rows of each attention
+        # and one SSM chunk a mamba layer, or one latent row an MLA block
+        one = rows.shape[0] * B * rows[0, 0, 0].numel() * rows.element_size()
+        self.counts = ({"lm.mla_blocks": rows.shape[0], "lm.mla_latent_bytes": one}
+                       if "latent" in cache else
+                       {"lm.kv_bytes": 2 * one, "lm.ssm_chunks": cache["S"].shape[0]})
         at = dict(cache, pos=self.pos)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -309,18 +316,20 @@ class DecodeGraph:
 
     def reset(self) -> None:
         """An empty cache for the next batch: the conv and SSM states zeroed
-        (the prefill starts from them); the KV rows need nothing, since
-        every row a step reads is written first in the same batch."""
-        self.cache["conv"].zero_()
-        self.cache["S"].zero_()
+        (the prefill starts from them); the KV and latent rows need
+        nothing, since every row a step reads is written first in the same
+        batch."""
+        for name in ("conv", "S"):
+            if name in self.cache:
+                self.cache[name].zero_()
         self.cache["len"] = 0
 
     def step(self, tok: torch.Tensor, idx: int) -> torch.Tensor:
         self.tok.copy_(tok)
         self.pos.fill_(idx)
         self.graph.replay()
-        obs.count("lm.kv_bytes", self.kv_bytes)
-        obs.count("lm.ssm_chunks", self.n_ssm)
+        for name, n in self.counts.items():
+            obs.count(name, n)
         return self.logits
 
 

@@ -856,6 +856,87 @@ def test_flash_head_dim_224_matches_plain(cuda_device, b, sq, hq, hkv, causal, s
     assert _rel(got, flash_lib.flash_attention_plain(qb, kb, vb, causal, scale=scale)) < 2e-2
 
 
+def _mla_inputs(b, sq, h, skv=None, seed=0):
+    """q and k at 192, v at 128 (MLA's expanded prefill): k's last 64
+    columns one rope head shared by every head, as the model builds it."""
+    rng = np.random.default_rng(seed)
+    skv = sq if skv is None else skv
+    q = torch.from_numpy(rng.normal(size=(b, sq, h, 192)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, skv, h, 192)).astype(np.float32))
+    k[..., 128:] = torch.from_numpy(rng.normal(size=(b, skv, 1, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(b, skv, h, 128)).astype(np.float32))
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,sq,h,causal,skv", [
+    (2, 200, 32, True, None),     # DeepSeek-V3's 32 heads
+    (2, 200, 32, False, None),
+    (1, 300, 4, True, None),      # causal edges
+    (2, 1, 16, False, 1500),      # one query row over 1500 keys
+    (1, 77, 8, False, 130),       # Sq, Skv not multiples of the tiles
+    (1, 129, 8, True, None),
+    (1, 1000, 2, True, None),
+])
+def test_flash_mla_head_dims_match_plain(cuda_device, b, sq, h, causal, skv):
+    """Q and K at 192, V and O at 128 through the kernel (bf16: the
+    ``flash_mla_kernel<192, 128>`` instantiation, Q and K in three 64-column
+    boxes, V in two, no padded copy of V; f32: the CUDA-core kernel at 192 /
+    128), scores scaled by 192^-1/2: f32 within 2e-5 of the plain version;
+    bf16 per element against the plain version in f32 on the same bf16
+    values, within one bf16 rounding plus 1e-5 of the largest output, the
+    bound the other head dims are held to."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = _mla_inputs(b, sq, h, skv, seed=sq + h)
+    ref = flash_lib.flash_attention_plain(q, k, v, causal)
+    before = build.FLASH_ATTENTION.launches
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (b, sq, h, 128)
+    assert _rel(got.cpu(), ref) < 2e-5
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (qb, kb, vb)), causal)
+    torch.cuda.synchronize()
+    assert build.FLASH_ATTENTION.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    got = got.cpu().float()
+    ref32 = flash_lib.flash_attention_plain(qb.float(), kb.float(), vb.float(), causal)
+    bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+    assert bool(((got - ref32).abs() <= bound).all())
+    assert _rel(got, flash_lib.flash_attention_plain(qb, kb, vb, causal)) < 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_mla_head_dims_at_ragged_edges(cuda_device, causal):
+    """The 192 / 128 instantiation at every 64-key and 128-row tile edge,
+    Skv != Sq both ways, in bf16: per element against the f32 plain
+    version on the same bf16 values."""
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    for sq, skv in RAGGED:
+        q, k, v = (t.to(torch.bfloat16) for t in _mla_inputs(2, sq, 4, skv, seed=sq + skv))
+        got = flash_lib.flash_attention(*(t.to(cuda_device) for t in (q, k, v)), causal)
+        torch.cuda.synchronize()
+        assert got.shape == (2, sq, 4, 128)
+        got = got.cpu().float()
+        ref32 = flash_lib.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        bound = 2.0 ** -8 * ref32.abs() + 1e-5 * ref32.abs().max()
+        assert bool(((got - ref32).abs() <= bound).all()), (sq, skv)
+
+
+def test_flash_refuses_unequal_head_dims_it_has_no_build_of(cuda_device):
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = (t.to(torch.bfloat16).to(cuda_device) for t in _mla_inputs(1, 64, 2))
+    with pytest.raises(ValueError):
+        flash_lib.flash_attention(q[..., :128].contiguous(), k[..., :128].contiguous(),
+                                  v[..., :64].contiguous())
+    with pytest.raises(ValueError):
+        flash_lib.flash_attention(q, k, v[..., :112].contiguous())
+    flash_lib.flash_attention(q, k, v)  # well formed
+
+
 @pytest.mark.parametrize("d", [64, 112, 224])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_reads_the_leading_rows_of_a_cache(cuda_device, d, dtype):
@@ -991,6 +1072,61 @@ def test_granite4h_decode_graph_equals_the_eager_decode(cuda_device):
             toks.append(lg[:, -1:, : cfg.vocab_size].argmax(-1))
     assert np.array_equal(r.generations, torch.cat(toks, 1).cpu().numpy())
     assert r.kept_taps["moe"].shape == (1, cfg.n_layers, 40, cfg.d_model)
+
+
+def test_deepseek_v3_decode_graph_equals_the_eager_decode(cuda_device):
+    """DeepSeek-V3's decode step as a CUDA graph (``zamba2.DecodeGraph``
+    over its latent cache, what ``launch.serve`` runs on the card: the
+    absorbed MLA over the cache's rows up to the device position, the
+    static MoE) against the eager decode step on the same card, smoke
+    config in f32: the same logits and routing bit for bit, step after
+    step; the prefill (a row at a time, the 192 / 128 flash kernel in f32)
+    matches the CPU's; ``serve`` gives the eager greedy tokens, with and
+    without ``prefill_at``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import deepseek_v3
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("kanana-2-30b-a3b-instruct", smoke=True)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    model = T.Transformer(T.weights(cpu, lambda t: t.detach().to(cuda_device)), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        graph = deepseek_v3.decode_graph(model, 2, 48)
+        before = build.FLASH_ATTENTION.launches
+        _, l_card = T.prefill(model, tok[:, :33].to(cuda_device), max_len=48,
+                              cache=graph.cache)
+        assert build.FLASH_ATTENTION.launches == before + 2 * cfg.n_layers
+        _, l_cpu = T.prefill(cpu, tok[:, :33], max_len=48)
+        assert _rel(l_card.cpu(), l_cpu) < 1e-4
+        eager, _ = T.prefill(model, tok[:, :33].to(cuda_device), max_len=48)
+        for t in range(33, 40):
+            x = tok[:, t: t + 1].to(cuda_device)
+            got = graph.step(x, t).clone()
+            route = graph.cache["route"].clone()
+            eager, want = T.decode_step(model, eager, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), t
+            assert torch.equal(route, eager["route"]), t
+        prompts = tok.to(cuda_device)
+        r = serve_lib.serve(cfg, tokens=6, device=cuda_device, model=model, prompts=prompts,
+                            keep=[1])
+        r2 = serve_lib.serve(cfg, tokens=6, device=cuda_device, model=model, prompts=prompts,
+                             keep=[1], prefill_at=[5, 39])
+        cache, lg = T.prefill(model, prompts, max_len=47)
+        toks = [lg[:, -1:, : cfg.vocab_size].argmax(-1)]
+        for _ in range(5):
+            cache, lg = T.decode_step(model, cache, toks[-1])
+            toks.append(lg[:, -1:, : cfg.vocab_size].argmax(-1))
+    assert np.array_equal(r.generations, torch.cat(toks, 1).cpu().numpy())
+    assert np.array_equal(r2.generations, r.generations)
+    assert _rel(r2.prefill_logits.cpu(), r.prefill_logits[:, [5, 39]].cpu()) < 1e-5
+    # the kept row's chosen experts at every prompt position and decode step
+    assert r.kept_taps["route"].shape == (1, cfg.n_moe, 40, cfg.top_k)
+    assert r.kept_taps["route_decode"].shape == (1, cfg.n_moe, 5, cfg.top_k)
+    assert r2.kept_cache["latent"].shape == (cfg.n_layers, 1, 2 + 5, cfg.latent_dim)
 
 
 def test_flash_attention_refuses_bad_operands(cuda_device):
